@@ -1,0 +1,26 @@
+"""CREAM on PyTorch and CUDA — the H100 port of :mod:`repro`.
+
+Mirrors ``src/repro/`` module for module at the same relative paths, so
+every file names its reference. The JAX package stays the reference: the
+tests feed both packages the same numpy inputs and hold the data plane to
+bit-exact agreement and the model to float32 tolerance.
+
+What this package holds today (the main path, end to end):
+
+  * :mod:`repro_torch.core`    — layouts, protection ladder, the plain
+    Hsiao SECDED(72,64) codec and the ``(R, 9, W)`` pool with its boundary
+    register;
+  * :mod:`repro_torch.kernels` — hand-written CUDA kernels for Hopper
+    (SECDED encode/decode, the fused mixed-pool read, the migration
+    gather/re-encode), each beside its plain PyTorch version;
+  * :mod:`repro_torch.vm`      — CREAM-VM tenants, frames, host swap and
+    zero-loss repartition;
+  * :mod:`repro_torch.models`  — the attention-only decoder for paged
+    serving;
+  * :mod:`repro_torch.serve`   — the CREAM-Serve continuous-batching engine.
+
+Entry points (``Engine``, ``VirtualMemory``, ``make_pool``) run on
+``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
+without ``device="cpu"`` they raise. Nothing here imports ``jax`` or
+:mod:`repro`.
+"""

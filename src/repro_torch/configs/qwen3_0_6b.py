@@ -1,0 +1,20 @@
+"""qwen3-0.6b — qk_norm, GQA [hf:Qwen/Qwen3-8B; hf].
+
+28L d_model=1024 16H (GQA kv=8) d_ff=3072 vocab=151936; head_dim=128
+(Qwen3 heads are wider than d_model/num_heads).
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-0.6b",
+    family="dense",
+    num_layers=28,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=3072,
+    vocab_size=151936,
+    head_dim=128,
+    qk_norm=True,
+    tie_embeddings=True,
+)

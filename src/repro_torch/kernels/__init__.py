@@ -1,0 +1,17 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain version.
+
+Each kernel package has two Python files; the CUDA sources live in
+``repro_torch/csrc/``:
+  * ``ops.py`` — the dispatching wrapper: the plain version for a CPU
+    tensor, the kernel for a CUDA tensor (or an error — never a fallback);
+  * ``ref.py`` — the plain PyTorch version the CPU tests and the card's
+    bit-exact checks use.
+
+Ported (with their TPU originals in ``repro/kernels/``):
+  secded    Hsiao(72,64) encode / decode-correct       csrc/secded.cu
+  mixed     fused mixed-pool read (read_correct)       csrc/mixed.cu
+  migrate   migration wrap gather + SECDED re-encode   csrc/migrate.cu
+
+Still to port (ROADMAP, queue 2): mixed ``read_correct_routed``, scrub,
+daec, parity8, interwrap, hash, flash_attention, ecc_matmul.
+"""

@@ -1,0 +1,270 @@
+"""CREAM-Serve: continuous batching with KV paged onto the CREAM pool.
+
+Port of ``repro/serve/engine.py`` (local pools; the CREAM-Shard migration
+ring and the telemetry calls are later slices). Every (sequence, layer, KV
+block) lives in one pool page; the block table (:class:`PagedKV`) maps
+them and the :class:`Scheduler` decides residency. A decode step is:
+
+  * ONE page gather — the fused mixed-pool read
+    (:mod:`repro_torch.kernels.mixed`, one kernel launch on the card) with
+    the flattened block tables as its index list;
+  * one model step (:meth:`Transformer.decode_step_paged` over all slots);
+  * ONE page scatter of the updated current blocks (``pool.write``).
+
+Shapes are fixed by ``(max_batch, n_layers, max_blocks)``: unbound slots
+read and write a scratch page and are masked by ``cache_len = 0``.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.layouts import Layout
+from repro_torch.kernels.mixed import ops as mixed_ops
+from repro_torch.models import build_model
+from repro_torch.models import transformer
+from repro_torch.serve.paged_kv import PagedKV, token_words_for
+from repro_torch.serve.scheduler import Scheduler, ServeRequest
+from repro_torch.vm.address_space import VirtualMemory
+
+
+def _percentile(xs: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
+
+
+class Engine:
+    """Paged-KV continuous-batching engine on a CREAM pool.
+
+    ``mode='cream'`` runs the pool boundary-free (InterWrap, +12.5 % pages,
+    except ``secded_rows`` kept SECDED for paid-tier requests); ``'secded'``
+    pins ``boundary=0`` (all rows SECDED — the conventional-ECC baseline
+    with the same arithmetic). Pass an existing ``vm`` (with pool ``pool``
+    already added) to share the data plane with other tenants. Runs on
+    ``device`` (``cuda`` unless asked otherwise; an existing ``vm`` decides).
+    """
+
+    def __init__(self, cfg: ModelConfig, max_batch: int, max_len: int,
+                 vm: VirtualMemory | None = None, pool: str = "kv",
+                 mode: str = "cream", num_rows: int = 64,
+                 row_words: int = 64, max_sessions: int = 128,
+                 secded_rows: int = 0, seed: int = 0, device=None):
+        if mode not in ("cream", "secded"):
+            raise ValueError(mode)
+        if len(transformer.attn_pattern_positions(cfg)) != len(cfg.pattern):
+            raise ValueError(f"{cfg.name}: CREAM-Serve pages KV only; "
+                             "attention-only patterns required")
+        if vm is None:
+            vm = VirtualMemory(row_words=row_words, device=device)
+            vm.add_pool(pool, num_rows, Layout.INTERWRAP,
+                        boundary=num_rows - secded_rows
+                        if mode == "cream" else 0)
+        elif device is not None and torch.device(device) != vm.device:
+            raise ValueError(f"vm lives on {vm.device}, not {device}")
+        self.cfg = cfg
+        self.vm = vm
+        self.device = vm.device
+        self.pool_name = pool
+        self.mode = mode
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.model = build_model(cfg, seed=seed, device=self.device)
+        self.n_layers = transformer.num_attn_layers(cfg)
+        self.kv = PagedKV(
+            vm, pool, n_layers=self.n_layers,
+            token_words=token_words_for(cfg.num_kv_heads, cfg.head_dim_,
+                                        cfg.activation_dtype),
+            max_seqs=max_sessions, max_tokens=max_len)
+        self.sched = Scheduler(self.kv, max_batch, token_limit=max_len)
+        # host-side per-slot decode registers
+        self._lens = np.zeros(max_batch, np.int32)
+        self._toks = np.zeros(max_batch, np.int32)
+        self.steps = 0
+
+    # -- geometry shorthands -------------------------------------------------
+    @property
+    def pool(self):
+        return self.vm.pools[self.pool_name]
+
+    @property
+    def _bt(self) -> int:
+        return self.kv.block_tokens
+
+    @property
+    def _s_pad(self) -> int:
+        return self.kv.max_blocks * self.kv.block_tokens
+
+    def _ids(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
+    # -- the per-step compute -------------------------------------------------
+    def _attend_fn(self, pages_i32: torch.Tensor, lens: torch.Tensor,
+                   toks: torch.Tensor):
+        """(B*L*maxB, page_words) gathered pages -> (logits, next token,
+        updated current-block pages (B*L, page_words))."""
+        cfg, kvw = self.cfg, self.kv.kv_words
+        B, L, maxB, bt = (self.max_batch, self.n_layers,
+                          self.kv.max_blocks, self._bt)
+        hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+        pages = pages_i32.reshape(B, L, maxB, -1)
+        used, tail = pages[..., :kvw], pages[..., kvw:]
+        kvv = used.view(torch.float32).reshape(B, L, maxB, 2, bt, hkv, hd)
+        k = kvv[:, :, :, 0].permute(1, 0, 2, 3, 4, 5) \
+            .reshape(L, B, maxB * bt, hkv, hd)
+        v = kvv[:, :, :, 1].permute(1, 0, 2, 3, 4, 5) \
+            .reshape(L, B, maxB * bt, hkv, hd)
+        logits, _, (k_new, v_new) = self.model.decode_step_paged(
+            {"cache_len": lens}, toks, (k, v))
+        # write-back: insert the new token into each slot's current block
+        blk = lens.long() // bt
+        off = lens.long() - blk * bt
+        b_idx = torch.arange(B, device=self.device)
+        curr = kvv[b_idx, :, blk]                        # (B, L, 2, bt, h, d)
+        new_tok = torch.stack([k_new.permute(1, 0, 2, 3),
+                               v_new.permute(1, 0, 2, 3)], dim=2)
+        onehot = torch.arange(bt, device=self.device) == off[:, None]
+        curr = torch.where(onehot[:, None, None, :, None, None],
+                           new_tok[:, :, :, None], curr)
+        cur_used = curr.contiguous().view(torch.int32).reshape(B, L, kvw)
+        cur_tail = tail[b_idx, :, blk]                   # (B, L, tail)
+        cur_pages = torch.cat([cur_used, cur_tail], dim=-1)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits, nxt, cur_pages.reshape(B * L, -1)
+
+    def _pack_fn(self, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Prefill KV (L, S, Hkv, D) pair -> (L*maxB, page_words) pages."""
+        L, maxB, bt = self.n_layers, self.kv.max_blocks, self._bt
+        pad = self._s_pad - k.shape[1]
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv = torch.stack([k.reshape(L, maxB, bt, *k.shape[2:]),
+                          v.reshape(L, maxB, bt, *v.shape[2:])], dim=2)
+        used = kv.contiguous().view(torch.int32).reshape(
+            L, maxB, self.kv.kv_words)
+        tail = torch.zeros((L, maxB, self.kv.page_words - self.kv.kv_words),
+                           dtype=torch.int32, device=self.device)
+        return torch.cat([used, tail], dim=-1).reshape(L * maxB,
+                                                       self.kv.page_words)
+
+    def _gather_pages(self, phys: np.ndarray) -> torch.Tensor:
+        """The decode step's ONE page gather: the fused mixed-pool read.
+
+        A DAEC tier would fall through to ``pool.read`` — the mixed kernel
+        corrects with SECDED only and would mis-decode those rows.
+        """
+        pool = self.pool
+        if pool.daec_rows == 0:
+            return mixed_ops.read_correct(pool.storage, self._ids(phys),
+                                          pool.layout, pool.num_rows,
+                                          pool.boundary)
+        return pool.read(phys)
+
+    # -- request intake ------------------------------------------------------
+    def submit(self, req: ServeRequest) -> None:
+        self.sched.submit(req)
+
+    def refresh_translation(self) -> list[int]:
+        """Call after an external repartition/migration on the serve pool:
+        refreshes the block tables' physical mirror and preempts bound
+        sequences whose pages left the device. Returns the dropped slots."""
+        return self.sched.sync_residency()
+
+    # -- the serving loop ------------------------------------------------------
+    def _do_prefill(self, slot: int, req: ServeRequest, sess) -> None:
+        toks = self._ids(np.asarray(req.prompt)[None, :])
+        logits, (ks, vs) = self.model.prefill(toks)
+        pages = self._pack_fn(ks[:, 0].float(), vs[:, 0].float())
+        p = len(req.prompt)
+        nb = self.kv.blocks_for(p)
+        phys = self.kv.gather_phys(np.asarray([sess.row]))[0]   # (L, maxB)
+        ids = phys[:, :nb].reshape(-1)
+        data = pages.reshape(self.n_layers, self.kv.max_blocks, -1)[:, :nb] \
+            .reshape(len(ids), -1)
+        self.vm.pools[self.pool_name] = self.pool.write(ids, data)
+        sess.cache_len = p
+        sess.last_tok = int(torch.argmax(logits[0, -1]))
+        req.generated.append(sess.last_tok)
+        self._lens[slot] = sess.cache_len
+        self._toks[slot] = sess.last_tok
+
+    def step(self) -> list[ServeRequest]:
+        """One decode step over every bound slot: one page gather, one
+        model step, one page scatter. Returns requests that finished."""
+        self.sched.ensure_step()
+        rows = np.asarray([s.row if s is not None else -1
+                           for s in self.sched.slots])
+        active = rows >= 0
+        if not active.any():
+            return []
+        lens = np.where(active, self._lens, 0).astype(np.int32)
+        toks = np.where(active, self._toks, 0).astype(np.int32)
+        phys = self.kv.gather_phys(rows)                    # (B, L, maxB)
+        pages = self._gather_pages(phys.reshape(-1))        # ONE gather
+        _, nxt, cur_pages = self._attend_fn(pages, self._ids(lens),
+                                            self._ids(toks))
+        cur_ids = self.kv.current_block_phys(rows, lens)    # (B, L)
+        self.vm.pools[self.pool_name] = self.pool.write(
+            cur_ids.reshape(-1), cur_pages)                 # ONE scatter
+        nxt = nxt.cpu().numpy()
+        self.steps += 1
+        finished = []
+        for slot in np.flatnonzero(active):
+            sess = self.sched.slots[slot]
+            sess.cache_len += 1
+            sess.last_tok = int(nxt[slot])
+            sess.req.generated.append(sess.last_tok)
+            self._lens[slot] = sess.cache_len
+            self._toks[slot] = sess.last_tok
+            if len(sess.req.generated) >= sess.req.max_new:
+                finished.append(self.sched.finish(slot))
+        return finished
+
+    def poll(self) -> list[ServeRequest]:
+        """One serving-loop iteration: an admission pass (prefilling the
+        newly admitted sessions) followed by one batched decode step."""
+        admitted = self.sched.tick()
+        done: list[ServeRequest] = []
+        for adm in admitted:
+            if adm.is_prefill:
+                self._do_prefill(adm.slot, adm.req, adm.session)
+                if len(adm.req.generated) >= adm.req.max_new:
+                    done.append(self.sched.finish(adm.slot))
+            else:
+                self._lens[adm.slot] = adm.session.cache_len
+                self._toks[adm.slot] = adm.session.last_tok
+        if self.sched.active_slots():
+            done.extend(self.step())
+        elif not admitted and self.sched.waiting:
+            raise RuntimeError(
+                "deadlock: waiting requests cannot be admitted "
+                f"({self.sched.stats})")
+        return done
+
+    def serve(self, requests: list[ServeRequest]) -> dict:
+        """Serve a request list to completion; returns the run's stats."""
+        for req in requests:
+            self.submit(req)
+        done: list[ServeRequest] = []
+        t0 = time.perf_counter()
+        while self.sched.has_work():
+            done.extend(self.poll())
+        wall = time.perf_counter() - t0
+        lats = [r.latency_s for r in done]
+        tokens = sum(len(r.generated) for r in done)
+        return {
+            "wall_s": wall,
+            "tokens": tokens,
+            "tokens_per_s": tokens / wall if wall else 0.0,
+            "requests": len(done),
+            "p50_latency_ms": _percentile(lats, 50) * 1e3,
+            "p99_latency_ms": _percentile(lats, 99) * 1e3,
+            "decode_steps": self.steps,
+            "device_pages": self.vm.device_capacity_pages(self.pool_name),
+            "device_util": self.vm.utilisation(self.pool_name),
+            "vm_fault_rate": self.vm.stats.fault_rate,
+            "host_reads": self.vm.stats.host_reads,
+            "mode": self.mode,
+            **self.sched.stats,
+        }
