@@ -31,10 +31,31 @@ exits nonzero:
                   every SECDED row decodes clean afterwards;
   7. serve-repartition  phase 4 with a mid-decode protection upgrade
                   (boundary -> 0) through the migration engine: identical
-                  tokens, pages migrated through the gather/re-encode kernel.
+                  tokens, pages migrated through the gather/re-encode kernel;
+  8. cache-reference  CREAM-Cache at 16 rows of W=64 on the card and on the
+                  CPU, the same seeded trace and one policy step on each of
+                  the three protection configurations: identical values,
+                  stats and storage;
+  9. cache-zipf   CREAM-Cache at R=16384 rows of W=2048 (64 KiB values,
+                  1.125 GiB of storage) on the configurations of
+                  benchmarks/bench_objcache.py (all-SECDED baseline, PARITY,
+                  correction-free InterWrap) over a zipfian trace: every hit
+                  verified, device pages and hit rates ordered, one
+                  hash_lookup_read launch per get, parity8 launches only on
+                  the PARITY pool;
+ 10. cache-websearch  the same over the WebSearch hot/cold trace;
+ 11. cache-demotion  the baseline for half the trace, a live move to
+                  correction-free, every value intact, then the second half;
+ 12. cache-adapt  a filled PARITY pool at boundary R/2 with planted flips in
+                  frames that hold no value: VMPolicy.step scrubs (scrub and
+                  parity8 check kernels), counts exactly the planted flips
+                  and upgrades the pool to all-SECDED with every value intact;
+ 13. cache-profile  one full-batch get and set: host-clock time, device
+                  kernel time by class under torch.profiler, busy share.
 
 Then the card's name and power limit, one JSON line listing every kernel
-with its launches on the serve phases and its phase-2 numbers, and, last,
+with its launches on the serve and cache phases and its phase-2 numbers,
+and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 float32 products are full float32.
 """
@@ -60,6 +81,14 @@ N_REQ, PROMPT, MAX_NEW = 8, 32, 32
 PROFILE_STEPS = 8          # decode steps in the profiled window
 SEED = 0
 DEVICE = "cuda"
+CACHE_ROWS = 16384         # 1.125 GiB of pool storage at W = 2048
+CACHE_ACCESSES = 131072    # per configuration and trace
+GET_BATCH, SET_BATCH = 512, 128
+CACHE_PROBE = 16
+ADAPT_FLIPS = 8            # single-bit flips planted in free SECDED rows
+#: benchmarks/cache_sim.py's fault-penalty model (µs per miss / per hit)
+FAULT_PENALTY_US, HIT_COST_US = 500.0, 0.1
+SLEEP_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of each timed call
 
 # kernel -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -71,6 +100,14 @@ KERNELS = {
                            "src/repro/kernels/mixed/kernel.py:90"),
     "migrate_gather_encode": ("src/repro_torch/csrc/migrate.cu",
                               "src/repro/kernels/migrate/kernel.py:59"),
+    "hash_lookup_read": ("src/repro_torch/csrc/hash.cu",
+                         "src/repro/kernels/hash/kernel.py:76"),
+    "parity8_encode": ("src/repro_torch/csrc/parity8.cu",
+                       "src/repro/kernels/parity8/kernel.py:52"),
+    "parity8_check": ("src/repro_torch/csrc/parity8.cu",
+                      "src/repro/kernels/parity8/kernel.py:67"),
+    "scrub_rows": ("src/repro_torch/csrc/scrub.cu",
+                   "src/repro/kernels/scrub/kernel.py:51"),
 }
 
 
@@ -84,7 +121,12 @@ def check(cond: bool, what: str) -> None:
 
 
 def median_ms(fn, reps: int) -> float:
-    """Median of ``reps`` single-launch CUDA-event timings after a warm-up."""
+    """Median of ``reps`` single-call CUDA-event timings after a warm-up.
+
+    Each timed call is queued behind a device-side sleep of about 1 ms, so
+    the events bracket the device work of ``fn`` and not the host time its
+    wrapper spends before the launch (tens of µs, as long as a small
+    kernel itself)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -92,6 +134,7 @@ def median_ms(fn, reps: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -208,13 +251,16 @@ def phase_kernels(torch, np, dev) -> dict:
     err_mixed = max_abs_err(mixed_ops.read_correct(*mix_args),
                             mixed_ref.read_correct(*mix_args))
     mixed_ms = median_ms(lambda: mixed_ops.read_correct(*mix_args), 20)
-    n_sec = int(((ids >= mixed_boundary) & (ids < NUM_ROWS)).sum())
+    # each input read once: distinct pages (and their codes) in, n out
+    u_ids = torch.unique(ids)
+    n_sec = int(((u_ids >= mixed_boundary) & (u_ids < NUM_ROWS)).sum())
 
     cream = words(NUM_ROWS, LANES, W)
     cids = torch.as_tensor(rng.integers(
         0, total_pages(Layout.INTERWRAP, NUM_ROWS, W), n), dtype=torch.int32,
         device=dev)
     cream_args = (cream, cids, Layout.INTERWRAP, NUM_ROWS, NUM_ROWS)
+    n_read = int(torch.unique(cids).numel())
     got = mixed_ops.read_correct(*cream_args)
     err_cream = max_abs_err(got, mixed_ref.read_correct(*cream_args))
     rows, lanes, _ = page_coords(Layout.INTERWRAP, NUM_ROWS, NUM_ROWS, cids,
@@ -226,10 +272,11 @@ def phase_kernels(torch, np, dev) -> dict:
         ms=median_ms(lambda: mixed_ops.read_correct(*cream_args), 20),
         plain_ms=median_ms(lambda: mixed_ref.read_correct(*cream_args), 3),
         library_ms=median_ms(lib, 20),
-        bound=bound_ms(4 * (2 * n * D + n), 0),
+        pages_read=n_read, bound=bound_ms(4 * ((n_read + n) * D + n), 0),
         mixed_pool=dict(boundary=mixed_boundary, secded_pages=n_sec,
-                        ms=mixed_ms, bound_ms=bound_ms(
-                            4 * (2 * n * D + n + n_sec * W),
+                        pages_read=int(u_ids.numel()), ms=mixed_ms,
+                        bound_ms=bound_ms(
+                            4 * ((u_ids.numel() + n) * D + n + n_sec * W),
                             48 * n_sec * D // 2)[0]))
 
     # -- migrate gather/re-encode over the CREAM pool ------------------------
@@ -242,10 +289,158 @@ def phase_kernels(torch, np, dev) -> dict:
         plain_ms=median_ms(
             lambda: migrate_ref.gather_encode(cream, cids, NUM_ROWS), 3),
         library_ms=None,
-        bound=bound_ms(4 * (2 * n * D + n * W + n), 40 * n * D // 2))
+        bound=bound_ms(4 * ((n_read + n) * D + n * W + n), 40 * n * D // 2))
     for name, r in out.items():
         check(r["max_abs_err"] == 0, f"{name} disagrees with its plain version")
     return dict(n_pages=n, row_words=W, kernels=out)
+
+
+def phase_cache_kernels(torch, np, dev) -> dict:
+    """The CREAM-Cache path's kernels against their plain versions, at the
+    shapes that path gives them: the get batch against a filled index on a
+    pool with boundary R/2; the set batch and the parity sweep of a
+    half-CREAM PARITY pool; the SECDED sweep of R/2 rows."""
+    from repro_torch.core import secded
+    from repro_torch.core.layouts import LANES, Layout, total_pages
+    from repro_torch.kernels.hash import ops as hash_ops
+    from repro_torch.kernels.hash import ref as hash_ref
+    from repro_torch.kernels.parity8 import ops as parity8_ops
+    from repro_torch.kernels.parity8 import ref as parity8_ref
+    from repro_torch.kernels.scrub import ops as scrub_ops
+    from repro_torch.kernels.scrub import ref as scrub_ref
+    from repro_torch.objcache import hash_index as hix
+
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    R, half, D = CACHE_ROWS, CACHE_ROWS // 2, 8 * W
+    words = lambda *shape: torch.randint(  # noqa: E731
+        -2**31, 2**31, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def coded_rows(n: int):
+        """(n, 9, W) SECDED rows with seeded flips of every status."""
+        data = words(n, D)
+        codes = secded.encode_block(data)
+        data, codes = plant_flips(data, codes, rng, n_each=n // 8)
+        return torch.cat([data.reshape(n, 8, W), codes[:, None, :]], dim=1)
+
+    def flipped(t, n: int):
+        """A copy of the (N, K) words ``t`` with ``n`` single-bit flips."""
+        out = t.clone()
+        flat = out.view(-1)
+        idx = torch.as_tensor(rng.choice(flat.numel(), n, replace=False),
+                              device=dev)
+        flat[idx] ^= torch.as_tensor(
+            (np.uint32(1) << rng.integers(0, 32, n).astype(np.uint32))
+            .view(np.int32), device=dev)
+        return out
+
+    out = {}
+
+    # -- hash probe + gather: the get batch on a pool with boundary R/2 -----
+    sto = torch.cat([words(half, LANES, W), coded_rows(R - half)])
+    n_pages = total_pages(Layout.INTERWRAP, half, W) + (R - half)
+    index = hix.make_index(4 * R, CACHE_PROBE, device=dev)
+    keys = rng.choice(2**31, R + GET_BATCH, replace=False)
+    index, _, ok = hix.insert(
+        index, torch.as_tensor(keys[:R], dtype=torch.int32, device=dev),
+        torch.as_tensor(rng.integers(0, n_pages, R), dtype=torch.int32,
+                        device=dev),
+        torch.zeros(R, dtype=torch.int32, device=dev),
+        torch.full((R,), D, dtype=torch.int32, device=dev))
+    stored = keys[:R][ok.cpu().numpy()]
+    q = np.concatenate([rng.choice(stored, 3 * GET_BATCH // 4),
+                        keys[R:R + GET_BATCH // 4]])        # 1/4 absent
+    q = torch.as_tensor(rng.permutation(q), dtype=torch.int32, device=dev)
+    hash_args = (sto, index.key, index.page, q, Layout.INTERWRAP, R, half,
+                 CACHE_PROBE)
+    got = hash_ops.lookup_read(*hash_args)
+    want = hash_ref.lookup_read(*hash_args)
+    # each input read once: the distinct pages the queries resolve to
+    # (absent keys all read page 0), written once per query
+    pages = torch.unique(hash_ref.resolve_pages(index.key, index.page, q,
+                                                CACHE_PROBE))
+    n_read = int(pages.numel())
+    n_sec = int(((pages >= half) & (pages < R)).sum())
+    n = GET_BATCH
+    out["hash_lookup_read"] = dict(
+        max_abs_err=max_abs_err(got, want),
+        ms=median_ms(lambda: hash_ops.lookup_read(*hash_args), 20),
+        plain_ms=median_ms(lambda: hash_ref.lookup_read(*hash_args), 3),
+        library_ms=None, queries=n, pages_read=n_read, secded_pages=n_sec,
+        found=int(np.isin(q.cpu().numpy(), stored).sum()),
+        bound=bound_ms(4 * ((n_read + n) * D + n_sec * W
+                            + n * (CACHE_PROBE + 1)), 48 * n_sec * D // 2))
+    # a window wider than a warp: 48 keys share one home slot, so matches
+    # sit at window positions 0..47 and absent keys scan two chunks of 32
+    wide = 48
+    cand = torch.arange(1 << 20, dtype=torch.int32)
+    home = cand[(hix.hash_u32(cand).long() & 0xFFFFFFFF) % 256 == 7]
+    small = hix.make_index(256, wide, device=dev)
+    small, _, ok = hix.insert(
+        small, home[:wide].to(dev),
+        torch.as_tensor(rng.integers(0, n_pages, wide), dtype=torch.int32,
+                        device=dev),
+        torch.zeros(wide, dtype=torch.int32, device=dev),
+        torch.full((wide,), D, dtype=torch.int32, device=dev))
+    check(bool(ok.all()), "wide-window insert failed")
+    wq = home[:wide + 8].flip(0).contiguous().to(dev)     # 8 absent keys
+    wide_args = (sto, small.key, small.page, wq, Layout.INTERWRAP, R, half,
+                 wide)
+    out["hash_lookup_read"].update(
+        wide_window=dict(probe=wide, queries=wide + 8),
+        max_abs_err=max(out["hash_lookup_read"]["max_abs_err"], max_abs_err(
+            hash_ops.lookup_read(*wide_args),
+            hash_ref.lookup_read(*wide_args))))
+    del sto, index, small
+
+    # -- parity8 encode / check: the set batch and the parity sweep ---------
+    shapes = {"set_batch": SET_BATCH, "sweep": half}
+    enc, chk = {}, {}
+    for name, rows in shapes.items():
+        data = words(rows, D)
+        parity = parity8_ref.encode(data)
+        e_got = parity8_ops.encode(data)
+        bad, bad_parity = flipped(data, 8), flipped(parity, 8)
+        c_got = parity8_ops.check(bad, bad_parity)
+        c_want = parity8_ref.check(bad, bad_parity)
+        statuses = sorted(int(x) for x in torch.unique(c_got))
+        check(statuses == [0, 1], f"parity8 check statuses {statuses}")
+        enc[name] = dict(
+            rows=rows, max_abs_err=max_abs_err(e_got, parity),
+            ms=median_ms(lambda: parity8_ops.encode(data), 20),
+            plain_ms=median_ms(lambda: parity8_ref.encode(data), 3),
+            bound=bound_ms(4 * (rows * D + rows * D // 64), rows * D // 4))
+        chk[name] = dict(
+            rows=rows, max_abs_err=max_abs_err(c_got, c_want),
+            ms=median_ms(lambda: parity8_ops.check(bad, bad_parity), 20),
+            plain_ms=median_ms(lambda: parity8_ref.check(bad, bad_parity), 3),
+            bound=bound_ms(4 * (rows * D + rows * D // 64 + rows * D // 16),
+                           rows * D // 4))
+        del data, parity, bad, bad_parity
+    for name, per_shape, main in (("parity8_encode", enc, "set_batch"),
+                                  ("parity8_check", chk, "sweep")):
+        out[name] = dict(per_shape[main], library_ms=None,
+                         max_abs_err=max(r["max_abs_err"]
+                                         for r in per_shape.values()),
+                         shapes=per_shape)
+
+    # -- scrub: the SECDED sweep of R/2 rows --------------------------------
+    rows = coded_rows(half)
+    s_got = scrub_ops.scrub_rows(rows)
+    s_want = scrub_ref.scrub_rows(rows)
+    statuses = sorted(int(x) for x in torch.unique(s_got[1]))
+    check(statuses == [0, 1, 2, 3], f"scrub statuses {statuses}")
+    out["scrub_rows"] = dict(
+        max_abs_err=max_abs_err(s_got, s_want),
+        ms=median_ms(lambda: scrub_ops.scrub_rows(rows), 20),
+        plain_ms=median_ms(lambda: scrub_ref.scrub_rows(rows), 3),
+        library_ms=None, rows=half, statuses=statuses,
+        bound=bound_ms(4 * (2 * half * LANES * W + half * D // 2),
+                       48 * half * D // 2))
+    del rows, s_got, s_want
+    for name, r in out.items():
+        check(r["max_abs_err"] == 0, f"{name} disagrees with its plain version")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +531,10 @@ def serve_phase(torch, np, mode: str, repartition: bool = False):
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
-    for key, cls in (("mixed_read_correct", "mixed read"),
+    for key, cls in (("hash_lookup_read", "hash probe+gather"),
+                     ("parity8", "parity8 codec"),
+                     ("scrub_rows", "scrub"),
+                     ("mixed_read_correct", "mixed read"),
                      ("secded", "secded codec"),
                      ("migrate", "migrate"),
                      ("gemm", "matmul"), ("gemv", "matmul"),
@@ -411,6 +609,385 @@ def phase_profile(torch, np, eng) -> dict:
                     for name, us in by_name.most_common(12)])
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-13: CREAM-Cache
+# ---------------------------------------------------------------------------
+
+
+def zipf_trace(np, rng, n_pages: int, n_accesses: int,
+               alpha: float = 0.99):
+    """Zipfian key popularity over shuffled ids (benchmarks/cache_sim.py)."""
+    ranks = np.arange(1, n_pages + 1, dtype=np.float64)
+    probs = ranks ** (-alpha)
+    probs /= probs.sum()
+    perm = rng.permutation(n_pages)
+    return perm[rng.choice(n_pages, size=n_accesses, p=probs)]
+
+
+def websearch_trace(np, rng, hot_pages: int, cold_pages: int,
+                    n_accesses: int, hot_frac: float = 0.95,
+                    alpha: float = 0.99):
+    """A zipfian hot set over a uniform cold tail (benchmarks/cache_sim.py)."""
+    hot = zipf_trace(np, rng, hot_pages, n_accesses, alpha)
+    cold = hot_pages + rng.integers(0, cold_pages, size=n_accesses)
+    return np.where(rng.random(n_accesses) < hot_frac, hot, cold)
+
+
+def values_for(np, keys, span: int):
+    """Deterministic value per key (verifiable replay)."""
+    keys = np.asarray(keys, np.uint32)
+    return keys[:, None] * np.arange(1, span + 1, dtype=np.uint32)
+
+
+def cache_configs():
+    """bench_objcache.py's three protection levels: (name, layout,
+    boundary), boundary None = the whole pool in CREAM mode."""
+    from repro_torch.core.layouts import Layout
+    return [("baseline", Layout.INTERWRAP, 0),
+            ("parity", Layout.PARITY, None),
+            ("correction_free", Layout.INTERWRAP, None)]
+
+
+def build_cache(layout, boundary, rows: int, row_words: int, device):
+    from repro_torch.objcache import ObjCache
+    from repro_torch.vm import VirtualMemory
+    vm = VirtualMemory(row_words=row_words, device=device)
+    vm.add_pool("dimm", rows, layout, boundary=boundary)
+    return vm, ObjCache(vm, "dimm", index_capacity=4 * rows,
+                        probe=CACHE_PROBE)
+
+
+def replay(np, cache, trace, get_batch: int, set_batch: int,
+           warmup: bool = True) -> tuple[float, int]:
+    """bench_objcache.replay with verify=True -> (wall seconds, get calls).
+
+    Misses queue up and are admitted ``set_batch`` at a time as full-page
+    values; every hit is checked against ``values_for``. ``warmup`` runs
+    one get/set round first and resets the stats. Each get and each set
+    ends in a host copy, so the host clock covers the device work.
+    """
+    span = cache.max_value_words
+    gets = 0
+    if warmup:
+        ks = trace[:get_batch]
+        _, _, found = cache.get_many(ks)
+        gets += 1
+        miss = np.unique(ks[~found])[:set_batch]
+        pad = np.arange(2**30, 2**30 + set_batch - len(miss), dtype=np.int64)
+        batch = np.concatenate([miss, pad])
+        cache.set_many(batch, values_for(np, batch, span))
+        if len(pad):
+            cache.delete_many(pad)
+        cache.stats = type(cache.stats)()
+    t0 = time.perf_counter()
+    pending = np.zeros(0, np.int64)
+    for i in range(0, len(trace) - len(trace) % get_batch, get_batch):
+        ks = trace[i:i + get_batch]
+        vals, _, found = cache.get_many(ks)
+        gets += 1
+        check(bool((vals[found, :span] == values_for(np, ks[found], span))
+                   .all()), "a cached value came back corrupted")
+        pending = np.unique(np.concatenate([pending, ks[~found]]))
+        while len(pending) >= set_batch:
+            batch, pending = pending[:set_batch], pending[set_batch:]
+            cache.set_many(batch, values_for(np, batch, span))
+    return time.perf_counter() - t0, gets
+
+
+def cache_summary(cache, seconds: float) -> dict:
+    s = cache.stats
+    ops = s.gets + s.sets
+    return dict(hit_rate=s.hit_rate,
+                us_per_op=seconds * 1e6 / ops if ops else 0.0,
+                model_total_us=s.misses * FAULT_PENALTY_US
+                + s.hits * HIT_COST_US,
+                device_pages=cache.pool.num_pages, gets=s.gets, sets=s.sets,
+                evictions=s.evictions, host_hits=s.host_hits)
+
+
+def live_keys(np, cache):
+    """Keys of every value the cache holds (from its device index)."""
+    from repro_torch.kernels.common import to_u32
+    return to_u32(cache.index.key)[cache._live].astype(np.int64)
+
+
+def check_all_values(np, cache) -> int:
+    """Read back every live value; all must equal ``values_for``."""
+    keys = live_keys(np, cache)
+    for i in range(0, len(keys), GET_BATCH):
+        ks = keys[i:i + GET_BATCH]
+        vals, lens, found = cache.get_many(ks)
+        check(bool(found.all()), "a cached value was lost")
+        check(bool((vals == values_for(np, ks, cache.max_value_words))
+                   .all()), "a cached value changed")
+    return len(keys)
+
+
+def phase_cache_reference(torch, np) -> dict:
+    """The same seeded trace and one policy step, with a planted flip, on a
+    small cache on the card and on the CPU: identical per-batch results,
+    stats and storage."""
+    from repro_torch.core.monitor import MonitorConfig
+    from repro_torch.kernels.common import to_u32
+    from repro_torch.vm.policy import VMPolicy
+    rows, w = 16, 64
+    out = {}
+    for name, layout, boundary in cache_configs():
+        rng = np.random.default_rng(SEED + 3)
+        trace = zipf_trace(np, rng, 4 * rows, 512)
+        twins = [build_cache(layout, boundary, rows, w, d)
+                 for d in (DEVICE, "cpu")]
+        span = twins[0][1].max_value_words
+        pending = np.zeros(0, np.int64)
+        for i in range(0, len(trace), 16):
+            ks = trace[i:i + 16]
+            res = [c.get_many(ks) for _, c in twins]
+            for a, b in zip(*res, strict=True):
+                check(np.array_equal(a, b), f"{name}: card and CPU gets "
+                      "differ")
+            pending = np.unique(np.concatenate([pending, ks[~res[0][2]]]))
+            while len(pending) >= 4:
+                batch, pending = pending[:4], pending[4:]
+                lens = rng.integers(1, span + 1, 4)
+                got = [c.set_many(batch, values_for(np, batch, span), lens)
+                       for _, c in twins]
+                check(np.array_equal(*got), f"{name}: card and CPU sets "
+                      "differ")
+        steps = []
+        for vm, _ in twins:
+            pool = vm.pools["dimm"]
+            flip = torch.zeros_like(pool.storage)
+            flip[rows - 1, 2, 5] = 1 << 3        # a SECDED or CREAM row
+            vm.pools["dimm"] = dataclasses.replace(
+                pool, storage=pool.storage ^ flip)
+            stats, performed = VMPolicy(vm, config=MonitorConfig(
+                window=1)).step(use_kernel=True)
+            steps.append((stats["dimm"], performed))
+        check(steps[0] == steps[1], f"{name}: policy steps differ")
+        (vm_a, c_a), (vm_b, c_b) = twins
+        check(np.array_equal(to_u32(vm_a.pools["dimm"].storage),
+                             to_u32(vm_b.pools["dimm"].storage)),
+              f"{name}: card and CPU storage differ")
+        sa, sb = (dataclasses.asdict(c.stats) for c in (c_a, c_b))
+        for k in ("get_s", "set_s"):
+            sa.pop(k), sb.pop(k)
+        check(sa == sb, f"{name}: card and CPU stats differ")
+        out[name] = dict(sa, boundary_after=vm_a.pools["dimm"].boundary,
+                         scrub=dataclasses.asdict(steps[0][0]))
+    return out
+
+
+def phase_cache_replay(torch, np, kind: str) -> tuple[dict, dict, object]:
+    """One trace over the three configurations at full size -> (results,
+    launches per configuration, the PARITY cache for the profile)."""
+    from repro_torch.kernels import common
+    rows = CACHE_ROWS
+    if kind == "zipf":
+        trace = zipf_trace(np, np.random.default_rng(SEED), 4 * rows,
+                           CACHE_ACCESSES)
+    else:
+        trace = websearch_trace(np, np.random.default_rng(SEED + 1),
+                                int(1.25 * rows), 8 * rows, CACHE_ACCESSES)
+    out, launches, keep = {}, {}, None
+    for name, layout, boundary in cache_configs():
+        _, cache = build_cache(layout, boundary, rows, W, DEVICE)
+        torch.cuda.synchronize()
+        common.LAUNCHES.clear()              # counts of the main path only
+        seconds, gets = replay(np, cache, trace, GET_BATCH, SET_BATCH)
+        torch.cuda.synchronize()
+        launches[name] = dict(common.LAUNCHES)
+        out[name] = dict(cache_summary(cache, seconds), seconds=seconds,
+                         launches=launches[name])
+        check(launches[name].get("hash_lookup_read", 0) == gets,
+              f"{kind}/{name}: {launches[name].get('hash_lookup_read')} "
+              f"hash launches for {gets} gets")
+        uses_parity = any(k.startswith("parity8") and v
+                          for k, v in launches[name].items())
+        check(uses_parity == (name == "parity"),
+              f"{kind}/{name}: parity8 launched = {uses_parity}")
+        if name == "parity" and kind == "zipf":
+            keep = cache
+        del cache
+        torch.cuda.empty_cache()
+    base = out["baseline"]["model_total_us"]
+    for name in out:
+        cur = out[name]["model_total_us"]
+        out[name]["model_speedup"] = base / cur if cur else 0.0
+    pages = [out[n]["device_pages"] for n, _, _ in cache_configs()]
+    check(pages[0] < pages[1] < pages[2], f"{kind}: device pages {pages}")
+    for name in ("parity", "correction_free"):
+        check(out[name]["hit_rate"] > out["baseline"]["hit_rate"],
+              f"{kind}: {name} hit rate is not above the baseline's")
+    return out, launches, keep
+
+
+def phase_cache_demotion(torch, np) -> tuple[dict, dict]:
+    """All-SECDED for the first half of the zipf trace, a live demotion to
+    correction-free (repartition_with_migration + refresh_translation),
+    every value read back, then the second half."""
+    from repro_torch.core.layouts import Layout
+    from repro_torch.kernels import common
+    from repro_torch.vm import MigrationEngine
+    rows = CACHE_ROWS
+    trace = zipf_trace(np, np.random.default_rng(SEED), 4 * rows,
+                       CACHE_ACCESSES)
+    half = len(trace) // 2
+    vm, cache = build_cache(Layout.INTERWRAP, 0, rows, W, DEVICE)
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()
+    replay(np, cache, trace[:half], GET_BATCH, SET_BATCH)
+    before = cache.stats.hit_rate
+    g0, h0 = cache.stats.gets, cache.stats.hits
+    t0 = time.perf_counter()
+    info = MigrationEngine(vm).repartition_with_migration("dimm", rows)
+    refresh = cache.refresh_translation()
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t0
+    checked = check_all_values(np, cache)
+    replay(np, cache, trace[half:], GET_BATCH, SET_BATCH, warmup=False)
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    after = (cache.stats.hits - h0 - checked) / max(
+        cache.stats.gets - g0 - checked, 1)
+    check(cache.pool.num_pages == rows + rows // 8,
+          f"demotion left {cache.pool.num_pages} pages")
+    out = dict(hit_before=before, hit_after=after,
+               device_pages=cache.pool.num_pages, values_checked=checked,
+               repartition=info, refresh=refresh, move_s=move_s,
+               launches=launches)
+    del cache, vm
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_cache_adapt(torch, np) -> tuple[dict, dict]:
+    """The scrub -> monitor -> adapt loop on a filled PARITY pool at
+    boundary R/2. Flips go into frames that hold no value: single-bit flips
+    in free SECDED rows and one data bit of a CREAM page whose value was
+    deleted. One ``VMPolicy.step`` must count exactly those flips and
+    upgrade the pool to all-SECDED, and every value must survive."""
+    from repro_torch.core.layouts import Layout
+    from repro_torch.kernels import common
+    from repro_torch.objcache import hash_index as hix
+    from repro_torch.vm.policy import VMPolicy
+    rows, half = CACHE_ROWS, CACHE_ROWS // 2
+    vm, cache = build_cache(Layout.PARITY, half, rows, W, DEVICE)
+    span = cache.max_value_words
+    cream_frames = cache.pool.num_pages - (rows - half)
+    keys = np.arange(1, cream_frames - 64 + 1)   # every CREAM frame but 64
+    t0 = time.perf_counter()
+    for i in range(0, len(keys), SET_BATCH):
+        batch = keys[i:i + SET_BATCH]
+        check(bool(cache.set_many(batch, values_for(np, batch, span)).all()),
+              "fill rejected a value")
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    # free one regular CREAM frame: delete the value that lives there
+    victim = int(keys[len(keys) // 2])
+    slot = int(hix.find(cache.index, torch.as_tensor(
+        [victim], dtype=torch.int32, device=vm.device))[0][0])
+    page = vm.translate(cache.tenant, int(cache._vpn[slot])).phys
+    check(page < half, f"victim page {page} is not a regular CREAM page")
+    cache.delete_many([victim])
+    owned = set(vm.allocators["dimm"].owner)
+    free_sec = [r for r in range(half, rows) if r not in owned]
+    rng = np.random.default_rng(SEED + 4)
+    flip_rows = rng.choice(free_sec, ADAPT_FLIPS, replace=False)
+    pool = vm.pools["dimm"]
+    flips = torch.zeros_like(pool.storage)
+    for r in flip_rows:                    # one data bit per row: status 1
+        flips[int(r), int(rng.integers(0, 8)), int(rng.integers(0, W))] = \
+            1 << int(rng.integers(0, 31))
+    flips[page, 3, 7] = 1 << 11             # one parity line of page
+    vm.pools["dimm"] = dataclasses.replace(pool,
+                                           storage=pool.storage ^ flips)
+    del pool, flips
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                  # counts of the main path only
+    t0 = time.perf_counter()
+    policy = VMPolicy(vm)
+    stats, performed = policy.step(use_kernel=True)
+    refresh = cache.refresh_translation()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    s = stats["dimm"]
+    check(launches.get("scrub_rows", 0) > 0, "scrub_rows not launched")
+    check(launches.get("parity8_check", 0) > 0, "parity8_check not launched")
+    check((s.corrected_data, s.corrected_code, s.detected_uncorrectable,
+           s.parity_corrupt_lines) == (ADAPT_FLIPS, 0, 0, 1),
+          f"scrub census {s} does not match the planted flips")
+    check(sorted(s.corrupt_rows) == [page], f"corrupt rows {s.corrupt_rows}")
+    check(vm.pools["dimm"].boundary == 0 and len(performed) == 1,
+          "the monitor did not upgrade the pool")
+    checked = check_all_values(np, cache)
+    check(checked == len(keys) - 1, f"{checked} values after the upgrade")
+    out = dict(rows=rows, boundary_before=half, values=len(keys) - 1,
+               fill_s=fill_s, step_s=step_s, scrub=dataclasses.asdict(s),
+               transitions=[(n, a.value, b.value)
+                            for n, a, b in policy.transitions],
+               repartition=performed[0], refresh=refresh,
+               values_checked=checked, launches=launches)
+    del cache, vm, policy
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_cache_profile(torch, np, cache) -> dict:
+    """Where a full-batch get and set spend their time on the PARITY cache
+    of cache-zipf: host clock without the profiler, then device kernel
+    time by class under torch.profiler and the device's busy share."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    span = cache.max_value_words
+    rng = np.random.default_rng(SEED + 5)
+    fresh = iter(range(2**30, 2**31, SET_BATCH))
+
+    def one(op: str) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if op == "get":
+            cache.get_many(rng.integers(0, 4 * CACHE_ROWS, GET_BATCH))
+        else:
+            keys = np.arange(SET_BATCH, dtype=np.int64) + next(fresh)
+            cache.set_many(keys, values_for(np, keys, span))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    for op in ("get", "set"):
+        one(op)                              # warm
+        plain = one(op)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiled = one(op)
+        by_name: Counter = Counter()
+        events = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] += e.time_range.elapsed_us()
+                events += 1
+        r = dict(batch=GET_BATCH if op == "get" else SET_BATCH,
+                 host_ms=plain, profiled_ms=profiled, device_events=events)
+        if by_name:
+            by_class: Counter = Counter()
+            for name, us in by_name.items():
+                by_class[_kernel_class(name)] += us
+            busy = sum(by_name.values())
+            r.update(device_ms=busy / 1e3,
+                     device_busy_share=busy / (profiled * 1e3),
+                     ms_by_class={k: v / 1e3
+                                  for k, v in by_class.most_common()},
+                     top_kernels_ms=[(name[:96], us / 1e3) for name, us
+                                     in by_name.most_common(8)])
+        else:
+            r["device_time"] = "not measured"
+        out[op] = r
+    return out
+
+
 def summary(stats: dict, launches: dict, wall: float) -> dict:
     keep = ("tokens", "tokens_per_s", "p50_latency_ms", "p99_latency_ms",
             "decode_steps", "device_pages", "preemptions", "restores",
@@ -440,13 +1017,17 @@ def main() -> int:
               ptxas=[ln.strip() for ln in log.splitlines()
                      if "registers" in ln]))
 
+    def phase(name: str, result: dict) -> None:
+        emit(dict(phase=name, elapsed_s=time.perf_counter() - t0, **result))
+
     kern = phase_kernels(torch, np, dev)
-    emit(dict(phase="kernels", **kern))
-    emit(dict(phase="reference", **phase_reference(torch, np)))
+    kern["kernels"].update(phase_cache_kernels(torch, np, dev))
+    phase("kernels", kern)
+    phase("reference", phase_reference(torch, np))
 
     eng, tok_c, st_c, l_c, _, wall_c = serve_phase(torch, np, "cream")
-    emit(dict(phase="serve-cream", **summary(st_c, l_c, wall_c)))
-    emit(dict(phase="profile", **phase_profile(torch, np, eng)))
+    phase("serve-cream", summary(st_c, l_c, wall_c))
+    phase("profile", phase_profile(torch, np, eng))
     del eng
     torch.cuda.empty_cache()
 
@@ -463,8 +1044,8 @@ def main() -> int:
         pool.storage[:, :8, :].reshape(pool.num_rows, -1).contiguous(),
         pool.storage[:, 8, :].contiguous())
     check(int(status.max()) == 0, "SECDED rows do not decode clean")
-    emit(dict(phase="serve-secded", tokens_equal=True, rows_clean=True,
-              **summary(st_s, l_s, wall_s)))
+    phase("serve-secded", dict(tokens_equal=True, rows_clean=True,
+                               **summary(st_s, l_s, wall_s)))
     del eng, pool
     torch.cuda.empty_cache()
 
@@ -473,9 +1054,26 @@ def main() -> int:
     check(info is not None and info["migrated"] > 0, "no page migrated")
     check(l_r.get("migrate_gather_encode", 0) > 0, "no gather_encode launch")
     check(tok_r == tok_c, "repartition changed the tokens")
-    emit(dict(phase="serve-repartition", tokens_equal=True,
-              repartition=info, **summary(st_r, l_r, wall_r)))
+    phase("serve-repartition", dict(tokens_equal=True, repartition=info,
+                                    **summary(st_r, l_r, wall_r)))
     del eng
+    torch.cuda.empty_cache()
+
+    phase("cache-reference", phase_cache_reference(torch, np))
+    zipf, l_z, pcache = phase_cache_replay(torch, np, "zipf")
+    phase("cache-zipf", dict(rows=CACHE_ROWS, row_words=W,
+                             accesses=CACHE_ACCESSES, configs=zipf))
+    phase("cache-profile", phase_cache_profile(torch, np, pcache))
+    del pcache
+    torch.cuda.empty_cache()
+    web, l_w, _ = phase_cache_replay(torch, np, "websearch")
+    phase("cache-websearch", dict(rows=CACHE_ROWS, row_words=W,
+                                  accesses=CACHE_ACCESSES, configs=web))
+    dem, l_d = phase_cache_demotion(torch, np)
+    phase("cache-demotion", dem)
+    adapt, l_a = phase_cache_adapt(torch, np)
+    phase("cache-adapt", adapt)
+    main_paths = [l_c, l_s, l_r, *l_z.values(), *l_w.values(), l_d, l_a]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -488,7 +1086,7 @@ def main() -> int:
         bms, by = r["bound"]
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(l.get(name, 0) for l in (l_c, l_s, l_r)),
+            launches=sum(l.get(name, 0) for l in main_paths),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=bms, bound_by=by, library_ms=r["library_ms"]))
     emit({"kernels": line})

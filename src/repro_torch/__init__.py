@@ -5,21 +5,26 @@ every file names its reference. The JAX package stays the reference: the
 tests feed both packages the same numpy inputs and hold the data plane to
 bit-exact agreement and the model to float32 tolerance.
 
-What this package holds today (the main path, end to end):
+What this package holds today:
 
   * :mod:`repro_torch.core`    — layouts, protection ladder, the plain
-    Hsiao SECDED(72,64) codec and the ``(R, 9, W)`` pool with its boundary
-    register;
+    Hsiao SECDED(72,64) and parity8 codecs, the ``(R, 9, W)`` pool with
+    its boundary register (SECDED, PARITY and unprotected regions), the
+    scrubber and the health monitor;
   * :mod:`repro_torch.kernels` — hand-written CUDA kernels for Hopper
     (SECDED encode/decode, the fused mixed-pool read, the migration
-    gather/re-encode), each beside its plain PyTorch version;
-  * :mod:`repro_torch.vm`      — CREAM-VM tenants, frames, host swap and
-    zero-loss repartition;
+    gather/re-encode, parity8 encode/check, the fused hash probe + gather,
+    the scrub sweep), each beside its plain PyTorch version;
+  * :mod:`repro_torch.vm`      — CREAM-VM tenants, frames, host swap,
+    zero-loss repartition and the scrub → monitor → adapt policy;
+  * :mod:`repro_torch.objcache` — CREAM-Cache, the key-value object cache
+    on pool pages (the paper's memcached and WebSearch workloads);
   * :mod:`repro_torch.models`  — the attention-only decoder for paged
     serving;
   * :mod:`repro_torch.serve`   — the CREAM-Serve continuous-batching engine.
 
-Entry points (``Engine``, ``VirtualMemory``, ``make_pool``) run on
+Entry points (``Engine``, ``VirtualMemory``, ``make_pool``,
+``make_index``; ``ObjCache`` through its VM) run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
 without ``device="cpu"`` they raise. Nothing here imports ``jax`` or
 :mod:`repro`.

@@ -15,17 +15,24 @@ gather or scatter plus the batched SECDED codec
 (:mod:`repro_torch.kernels.secded` — the CUDA kernels for a pool on the
 card, the plain versions on the CPU).
 
+PARITY pools with a CREAM region keep an 8-bit parity byte per 64-byte
+line of every CREAM and extra page in packed tables at the bottom of the
+code lane (:func:`~repro_torch.core.layouts.parity_coords`), maintained by
+the parity8 kernels (:mod:`repro_torch.kernels.parity8`): reads report a
+corrupt line as status 3, writes re-encode, and a repartition re-homes the
+surviving extra pages, whose home depends on the boundary-sized tables.
+
 Storage updates. The reference is functional (old state in, new state
 out). The port writes in place exactly where the reference donates the old
 state's storage — ``write`` and ``migrate`` (the reference's jitted entry
 points with ``donate_argnums=(0,)``) — so the returned state shares the
 input's storage and the input must be dropped, as every owner does. The
 non-donating functions (:func:`write_pages_any`, :func:`repartition`,
-``migrate(donate=False)``) work on a copy and leave the input state valid.
+``migrate(donate=False)``, ``scrub``) work on a copy and leave the input
+state valid.
 
-Not in this slice (each raises ``NotImplementedError``): the PARITY
-layout's parity side channel (a PARITY pool with a CREAM region) and the
-SEC-DAEC tier (``daec_rows > 0``).
+Not in this slice: the SEC-DAEC tier (``daec_rows > 0`` raises
+``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -37,12 +44,12 @@ import torch
 
 from repro_torch.core.layouts import (CODE_LANE, DATA_LANES, DEFAULT_ROW_WORDS,
                                       GROUP_ROWS, LANES, REGION_SECDED, Layout,
-                                      extra_page_count, page_coords)
+                                      extra_page_count, page_coords,
+                                      parity_coords)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.parity8 import ops as parity8_ops
 from repro_torch.kernels.secded import ops as secded_ops
 
-_PARITY_TODO = ("the PARITY layout's parity side channel needs the parity8 "
-                "kernel (ROADMAP, queue 2: parity8 encode/check)")
 _DAEC_TODO = ("the SEC-DAEC tier needs the daec kernel (ROADMAP, queue 2: "
               "daec encode/decode)")
 
@@ -130,12 +137,16 @@ class PoolState:
     def set_daec_rows(self, daec_rows: int) -> "PoolState":
         raise NotImplementedError(_DAEC_TODO)
 
+    def scrub(self, use_kernel: bool = False):
+        """Sweep + repair; returns ``(new_state, ScrubStats)`` and leaves
+        this state valid (see :func:`repro_torch.core.scrubber.scrub`)."""
+        from repro_torch.core.scrubber import scrub as _scrub
+        return _scrub(self, use_kernel=use_kernel)
 
-def _check_supported(layout: Layout, boundary: int, daec_rows: int) -> None:
-    if daec_rows:
-        raise NotImplementedError(_DAEC_TODO)
-    if layout == Layout.PARITY and boundary > 0:
-        raise NotImplementedError(_PARITY_TODO)
+    @property
+    def has_parity(self) -> bool:
+        """Whether the pool keeps the PARITY side channel."""
+        return self.layout == Layout.PARITY and self.boundary > 0
 
 
 def make_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
@@ -155,7 +166,8 @@ def make_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
         raise ValueError(
             f"daec_rows ({daec_rows}) must fit the protected region "
             f"[{boundary}, {num_rows})")
-    _check_supported(layout, boundary, daec_rows)
+    if daec_rows:
+        raise NotImplementedError(_DAEC_TODO)
     if row_words % 8:
         raise ValueError("row_words must be a multiple of 8")
     storage = torch.zeros((num_rows, LANES, row_words), dtype=torch.int32,
@@ -224,7 +236,9 @@ def read_pages_any_status(state: PoolState, pages
 
     Returns ``(data (n, page_words) int32, status (n,) int32)``: SECDED pages
     report their worst beat's decode status (corrections are applied to the
-    returned data, not persisted); CREAM-region and extra pages report 0.
+    returned data, not persisted); on a PARITY pool, CREAM-region and extra
+    pages report 3 when a line fails its parity check (detection only) and
+    0 otherwise; unprotected pages report 0.
     """
     pages = _as_page_array(state, pages)
     n = pages.shape[0]
@@ -235,15 +249,31 @@ def read_pages_any_status(state: PoolState, pages
     rows, lanes, region = page_coords(state.layout, state.num_rows,
                                       state.boundary, pages, state.row_words)
     data = state.storage[rows, lanes, :].reshape(n, -1)
+    is_sec = region == REGION_SECDED
     status = torch.zeros((n,), dtype=torch.int32, device=state.device)
     if state.boundary < state.num_rows:       # pool has SECDED rows
-        is_sec = region == REGION_SECDED
         crow = torch.clamp(pages, state.boundary, state.num_rows - 1)
         codes = state.storage[crow, CODE_LANE, :]
         fixed, _, st = secded_ops.decode(data, codes)
         data = torch.where(is_sec[:, None], fixed, data)
         status = torch.where(is_sec, st.amax(dim=-1), 0).to(torch.int32)
+    if state.has_parity:
+        packed = state.storage[_parity_index(state, pages)]
+        pst = parity8_ops.check(data, packed).amax(dim=-1) * 3
+        status = torch.where(is_sec, status, pst).to(torch.int32)
     return data, status
+
+
+def _parity_index(state: PoolState, pages: torch.Tensor) -> tuple:
+    """Index into ``storage`` of each page's ``(n, W/8)`` packed parity
+    entry in the code lane (rows clamped into the pool, as the reference
+    does for the SECDED pages that have none)."""
+    prow, off = parity_coords(state.num_rows, state.boundary, pages,
+                              state.row_words)
+    idx = off[:, None] + torch.arange(state.row_words // 8,
+                                      device=pages.device)
+    return (torch.clamp(prow, 0, state.num_rows - 1)[:, None], CODE_LANE,
+            idx)
 
 
 def read_pages_any(state: PoolState, pages) -> torch.Tensor:
@@ -254,10 +284,11 @@ def read_pages_any(state: PoolState, pages) -> torch.Tensor:
 def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
     """The write engine, updating ``state.storage`` in place.
 
-    One data scatter over the ``page_coords`` translation and one SECDED
-    code scatter for the protected pages. Rows masked out by ``valid`` (and
-    non-SECDED rows, for the code scatter) are removed before scattering —
-    the reference routes them out of range and lets ``mode="drop"`` discard
+    One data scatter over the ``page_coords`` translation, one SECDED code
+    scatter for the protected pages and, on a PARITY pool, one packed-parity
+    scatter for the CREAM and extra pages. Rows masked out by ``valid`` (and
+    the rows each codec does not cover) are removed before scattering — the
+    reference routes them out of range and lets ``mode="drop"`` discard
     them. Of duplicate ids the last valid row lands (:func:`_landing_rows`).
     """
     ids = _host_ids(state, pages)
@@ -270,14 +301,18 @@ def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
         ids = ids[land]
         data = data[torch.from_numpy(np.flatnonzero(land)).to(state.device)]
     pages = torch.from_numpy(ids).to(state.device)
-    rows, lanes, region = page_coords(state.layout, state.num_rows,
-                                      state.boundary, pages, state.row_words)
+    rows, lanes, _ = page_coords(state.layout, state.num_rows,
+                                 state.boundary, pages, state.row_words)
     storage = state.storage
     storage[rows, lanes, :] = data.reshape(-1, DATA_LANES, state.row_words)
-    if state.boundary < state.num_rows:       # pool has SECDED rows
-        is_sec = region == REGION_SECDED
-        codes = secded_ops.encode(data)
-        storage[pages[is_sec], CODE_LANE, :] = codes[is_sec]
+    is_sec = (ids >= state.boundary) & (ids < state.num_rows)
+    if is_sec.any():
+        sel = torch.from_numpy(np.flatnonzero(is_sec)).to(state.device)
+        storage[pages[sel], CODE_LANE, :] = secded_ops.encode(data[sel])
+    if state.has_parity and not is_sec.all():
+        sel = torch.from_numpy(np.flatnonzero(~is_sec)).to(state.device)
+        storage[_parity_index(state, pages[sel])] = parity8_ops.encode(
+            data[sel])
     return state
 
 
@@ -315,8 +350,11 @@ def repartition(state: PoolState, new_boundary: int
     span (their ids are returned) and gives rows ``[new, old)`` SECDED codes
     over their current, possibly wrap-striped, contents. Growing it decodes
     the surrendered rows once more (last chance to correct) and re-places
-    them under the CREAM layout. Regular pages keep their contents either
-    way. Works on a copy: ``state`` stays valid.
+    them under the CREAM layout (PARITY pools give them parity entries).
+    Regular pages keep their contents either way, and so do surviving extra
+    pages: a PARITY extra page's home sits above the boundary-sized parity
+    tables, so the survivors are read out before the move and re-homed
+    after it. Works on a copy: ``state`` stays valid.
     """
     if new_boundary % GROUP_ROWS or not 0 <= new_boundary <= state.num_rows:
         raise ValueError(f"bad boundary {new_boundary}")
@@ -329,7 +367,13 @@ def repartition(state: PoolState, new_boundary: int
             "evicted_extra_pages": [], "pages_reencoded": 0}
     if new_boundary == old:
         return state, info
-    _check_supported(state.layout, new_boundary, state.daec_rows)
+    extra_ids = None
+    if state.layout == Layout.PARITY:
+        surviving = min(state.num_extra_pages, extra_page_count(
+            state.layout, new_boundary, state.row_words))
+        if surviving:
+            extra_ids = np.arange(state.num_rows, state.num_rows + surviving)
+            extra_data = read_pages_any(state, extra_ids)
     storage = state.storage.clone()
     if new_boundary < old:  # CREAM region shrinks -> protect more rows
         info["evicted_extra_pages"] = evicted_extra_pages(state, new_boundary)
@@ -351,4 +395,6 @@ def repartition(state: PoolState, new_boundary: int
             PoolState(storage, new_boundary, state.layout, state.row_words,
                       state.daec_rows), affected, fixed)
         info["pages_reencoded"] = new_boundary - old
+    if extra_ids is not None:      # re-home the surviving PARITY extras
+        new_state = _write_in_place(new_state, extra_ids, extra_data)
     return new_state, info

@@ -25,5 +25,15 @@ def ladder() -> tuple[Protection, ...]:
     return tuple(reversed(_ORDER))
 
 
+def stronger(p: Protection) -> Protection:
+    i = _ORDER.index(p)
+    return _ORDER[min(i + 1, len(_ORDER) - 1)]
+
+
+def weaker(p: Protection) -> Protection:
+    i = _ORDER.index(p)
+    return _ORDER[max(i - 1, 0)]
+
+
 def at_least(a: Protection, b: Protection) -> bool:
     return _ORDER.index(a) >= _ORDER.index(b)

@@ -19,33 +19,12 @@
 // the matching packed code word and correct data-bit errors in registers
 // before the store; other pages skip the code lane entirely. Rows are
 // clamped into the pool, so a stray id cannot read outside the storage.
+#include "coords.cuh"
 #include "secded.cuh"
 
 using namespace repro_torch;
 
 namespace {
-
-__device__ __forceinline__ void page_slice(int page, int k, int interwrap,
-                                           int num_rows, int boundary,
-                                           int ebase, int& row, int& lane,
-                                           bool& sec) {
-  const bool is_extra = page >= num_rows;
-  const int e = page - num_rows;
-  sec = page >= boundary && page < num_rows;
-  if (interwrap) {
-    // CREAM and extra pages are wrap-striped (l = 8*slot + k, extras take
-    // slot 8 of their group); SECDED rows are conventional
-    const int group = is_extra ? e : page / 8;
-    const int slot = is_extra ? 8 : page % 8;
-    const int linear = 8 * slot + k;
-    row = sec ? page : 8 * group + linear / 9;
-    lane = sec ? k : linear % 9;
-  } else {
-    // regular pages are row-wise; extras live in 8 code-lane rows
-    row = is_extra ? ebase + 8 * e + k : page;
-    lane = is_extra ? 8 : k;
-  }
-}
 
 __global__ void mixed_read_correct_kernel(const int32_t* __restrict__ storage,
                                           const int32_t* __restrict__ pages,

@@ -11,7 +11,13 @@ Ported (with their TPU originals in ``repro/kernels/``):
   secded    Hsiao(72,64) encode / decode-correct       csrc/secded.cu
   mixed     fused mixed-pool read (read_correct)       csrc/mixed.cu
   migrate   migration wrap gather + SECDED re-encode   csrc/migrate.cu
+  parity8   8-bit-per-line parity encode / check       csrc/parity8.cu
+  hash      fused hash probe + mixed gather + correct  csrc/hash.cu
+  scrub     SECDED scrub sweep of (R, 9, W) rows       csrc/scrub.cu
 
-Still to port (ROADMAP, queue 2): mixed ``read_correct_routed``, scrub,
-daec, parity8, interwrap, hash, flash_attention, ecc_matmul.
+Shared device code: ``csrc/secded.cuh`` (Hsiao tables, in-register
+correct) and ``csrc/coords.cuh`` (page -> (row, lane) of one slice).
+
+Still to port (ROADMAP, queue 2): daec, mixed ``read_correct_routed``,
+interwrap, flash_attention, ecc_matmul.
 """

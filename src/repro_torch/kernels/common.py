@@ -108,8 +108,9 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("secded.cu", "mixed.cu", "migrate.cu")
-HEADERS = ("secded.cuh",)
+SOURCES = ("secded.cu", "mixed.cu", "migrate.cu", "parity8.cu", "hash.cu",
+           "scrub.cu")
+HEADERS = ("secded.cuh", "coords.cuh")
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -125,6 +126,16 @@ ENTRIES = {
     "mixed_read_correct": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # storage, pages, data, codes, n, W, num_rows, stream
     "migrate_gather_encode": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # data, parity, n_vectors, stream
+    "parity8_encode": (_P, _P, _I, _P),
+    # data, parity, status, n_vectors, stream
+    "parity8_check": (_P, _P, _P, _I, _P),
+    # storage, keys, slot_pages, queries, out, n, W, capacity, probe,
+    # interwrap, num_rows, boundary, ebase, stream
+    "hash_lookup_read": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
+    # storage, out, status, n_code_words, W, stream
+    "scrub_rows": (_P, _P, _P, _I, _I, _P),
 }
 
 
@@ -201,6 +212,16 @@ def launch(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+def check_contiguous(name: str, *tensors: torch.Tensor) -> None:
+    """Kernel operands must be contiguous on every device. The wrappers
+    check before they dispatch, so a strided view that the kernel would
+    refuse on the card fails the CPU tests too, instead of passing through
+    the plain version."""
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
 
 
 def check_cuda_words(name: str, *tensors: torch.Tensor) -> None:

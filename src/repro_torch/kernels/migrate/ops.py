@@ -25,6 +25,7 @@ def gather_encode(storage: torch.Tensor, pages: torch.Tensor, num_rows: int
                          f"== 0, got {tuple(storage.shape)}")
     if pages.dim() != 1:
         raise ValueError("pages must be a 1-D id vector")
+    common.check_contiguous("migrate_gather_encode", storage, pages)
     if storage.device.type == "cpu" and pages.device.type == "cpu":
         return ref.gather_encode(storage, pages, num_rows)
     W = storage.shape[2]

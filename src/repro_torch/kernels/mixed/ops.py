@@ -27,6 +27,7 @@ def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
                          f"== 0, got {tuple(storage.shape)}")
     if pages.dim() != 1:
         raise ValueError("pages must be a 1-D id vector")
+    common.check_contiguous("mixed_read_correct", storage, pages)
     if storage.device.type == "cpu" and pages.device.type == "cpu":
         return ref.read_correct(storage, pages, layout, num_rows, boundary)
     W = storage.shape[2]

@@ -21,6 +21,7 @@ def _check(data: torch.Tensor) -> tuple[int, int]:
 def encode(data: torch.Tensor) -> torch.Tensor:
     """(N, D) int32 words -> (N, D//8) packed SECDED codes."""
     n, d = _check(data)
+    common.check_contiguous("secded_encode", data)
     if data.device.type == "cpu":
         return ref.encode(data)
     common.check_cuda_words("secded_encode", data)
@@ -38,6 +39,7 @@ def decode(data: torch.Tensor, codes: torch.Tensor
     if codes.shape != (n, d // 8):
         raise ValueError(f"codes must be {(n, d // 8)}, got "
                          f"{tuple(codes.shape)}")
+    common.check_contiguous("secded_decode", data, codes)
     if data.device.type == "cpu" and codes.device.type == "cpu":
         return ref.decode(data, codes)
     common.check_cuda_words("secded_decode", data, codes)

@@ -14,6 +14,7 @@ import torch
 import repro_torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pool import make_pool
+from repro_torch.objcache.hash_index import make_index
 from repro_torch.serve import Engine
 from repro_torch.vm.address_space import VirtualMemory
 
@@ -34,7 +35,8 @@ def _env() -> dict:
 def test_importing_every_port_module_loads_no_jax():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
-    assert "repro_torch.serve.engine" in names
+    assert {"repro_torch.serve.engine", "repro_torch.objcache.cache",
+            "repro_torch.vm.policy"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -67,7 +69,8 @@ def test_forbidden_pattern_catches_what_it_must():
     lambda: Engine(CFG, max_batch=2, max_len=32),
     lambda: VirtualMemory(row_words=64),
     lambda: make_pool(16, row_words=64),
-], ids=["Engine", "VirtualMemory", "make_pool"])
+    lambda: make_index(64),
+], ids=["Engine", "VirtualMemory", "make_pool", "make_index"])
 def test_entry_points_without_cuda_raise(entry, monkeypatch):
     """No device and no CUDA: raise, never fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

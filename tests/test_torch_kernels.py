@@ -22,8 +22,11 @@ from repro.kernels.mixed import kernel as jmixed
 from repro.kernels.secded import kernel as jsecded
 from repro_torch.core.layouts import Layout, extra_base_row, total_pages
 from repro_torch.kernels import common
+from repro_torch.kernels.hash import ops as hash_ops
 from repro_torch.kernels.migrate import ops as migrate_ops
 from repro_torch.kernels.mixed import ops as mixed_ops
+from repro_torch.kernels.parity8 import ops as parity8_ops
+from repro_torch.kernels.scrub import ops as scrub_ops
 from repro_torch.kernels.secded import ops as secded_ops
 
 ROWS, W = 32, 64
@@ -121,6 +124,13 @@ CALLS = {
         _meta(ROWS, 9, W), _meta(5), Layout.PARITY, ROWS, 16),
     "migrate_gather_encode": lambda: migrate_ops.gather_encode(
         _meta(ROWS, 9, W), _meta(5), ROWS),
+    "parity8_encode": lambda: parity8_ops.encode(_meta(4, 8 * W)),
+    "parity8_check": lambda: parity8_ops.check(_meta(4, 8 * W),
+                                               _meta(4, W // 8)),
+    "hash_lookup_read": lambda: hash_ops.lookup_read(
+        _meta(ROWS, 9, W), _meta(64), _meta(64), _meta(5), Layout.PARITY,
+        ROWS, 16, 8),
+    "scrub_rows": lambda: scrub_ops.scrub_rows(_meta(ROWS, 9, W)),
 }
 
 
@@ -132,7 +142,49 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     sto = common.to_words(_storage(0, 16))
     mixed_ops.read_correct(sto, torch.arange(4), Layout.INTERWRAP, ROWS, 16)
     migrate_ops.gather_encode(sto, torch.arange(4), ROWS)
+    parity8_ops.check(data, parity8_ops.encode(data))
+    hash_ops.lookup_read(sto, torch.arange(64, dtype=torch.int32),
+                         torch.arange(64, dtype=torch.int32),
+                         torch.arange(4, dtype=torch.int32),
+                         Layout.INTERWRAP, ROWS, 16, 8)
+    scrub_ops.scrub_rows(sto)
     assert sum(common.LAUNCHES.values()) == 0
+
+
+def _strided(*shape) -> torch.Tensor:
+    """A CPU view with a row stride, as a pool slice gives."""
+    return torch.zeros((*shape[:-1], shape[-1] + 8), dtype=torch.int32)[
+        ..., :shape[-1]]
+
+
+STRIDED = {
+    "secded_encode": lambda: secded_ops.encode(_strided(4, 8 * W)),
+    "secded_decode": lambda: secded_ops.decode(
+        torch.zeros((4, 8 * W), dtype=torch.int32), _strided(4, W)),
+    "mixed_read_correct": lambda: mixed_ops.read_correct(
+        _strided(ROWS, 9, W), torch.arange(2), Layout.INTERWRAP, ROWS, 16),
+    "migrate_gather_encode": lambda: migrate_ops.gather_encode(
+        _strided(ROWS, 9, W), torch.arange(2), ROWS),
+    "parity8_encode": lambda: parity8_ops.encode(_strided(4, 8 * W)),
+    "parity8_check": lambda: parity8_ops.check(
+        _strided(4, 8 * W), torch.zeros((4, W // 8), dtype=torch.int32)),
+    "hash_lookup_read": lambda: hash_ops.lookup_read(
+        torch.zeros((ROWS, 9, W), dtype=torch.int32),
+        torch.zeros(64, dtype=torch.int32), torch.zeros(64, dtype=torch.int32),
+        torch.zeros(8, dtype=torch.int32)[::2], Layout.INTERWRAP, ROWS, 16,
+        8),
+    "scrub_rows": lambda: scrub_ops.scrub_rows(_strided(ROWS, 9, W)),
+}
+
+
+@pytest.mark.parametrize("name", list(STRIDED))
+def test_strided_views_are_refused_on_the_cpu_too(name):
+    """The kernels take contiguous operands only; the wrappers refuse a
+    strided view before dispatching, so the CPU path cannot accept what
+    the card would refuse."""
+    assert set(STRIDED) == set(CALLS)
+    with pytest.raises(ValueError, match="contiguous"):
+        STRIDED[name]()
 
 
 @pytest.mark.parametrize("name", list(CALLS))
@@ -162,3 +214,10 @@ def test_wrappers_marshal_the_declared_c_arguments(name, monkeypatch):
     if name == "mixed_read_correct":       # n, W, interwrap, rows, b, ebase
         assert args[3:] == (5, W, 0, ROWS, 16,
                             extra_base_row(Layout.PARITY, 16, W))
+    if name == "hash_lookup_read":   # n, W, C, probe, interwrap, rows, b, ebase
+        assert args[5:] == (5, W, 64, 8, 0, ROWS, 16,
+                            extra_base_row(Layout.PARITY, 16, W))
+    if name.startswith("parity8"):         # 16-byte vectors of the data
+        assert args[-1] == 4 * 8 * W // 4
+    if name == "scrub_rows":               # packed code words, W
+        assert args[3:] == (ROWS * W, W)

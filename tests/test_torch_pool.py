@@ -217,15 +217,15 @@ def test_migrate_without_donation_keeps_input():
 
 
 def test_parity_side_channel_and_daec_tier_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="parity8"):
-        tp.make_pool(ROWS, tl.Layout.PARITY, boundary=16, row_words=W,
-                     device="cpu")
+    """The PARITY side channel is ported (held against the reference in
+    ``tests/test_torch_parity.py``); the SEC-DAEC tier still raises."""
+    pool = tp.make_pool(ROWS, tl.Layout.PARITY, boundary=16, row_words=W,
+                        device="cpu")
+    assert pool.num_pages == ROWS + tl.extra_page_count(tl.Layout.PARITY, 16,
+                                                         W)
+    assert pool.move_boundary(8)[0].boundary == 8
     with pytest.raises(NotImplementedError, match="daec"):
         tp.make_pool(ROWS, tl.Layout.INTERWRAP, boundary=16, row_words=W,
                      daec_rows=8, device="cpu")
-    pool = tp.make_pool(ROWS, tl.Layout.PARITY, boundary=0, row_words=W,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="parity8"):
-        pool.move_boundary(8)
     with pytest.raises(NotImplementedError, match="daec"):
         pool.set_daec_rows(8)
