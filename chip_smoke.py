@@ -13,10 +13,15 @@ exits nonzero:
   2. kernels      each kernel against its plain PyTorch version on the card,
                   bit-exact, at the serving shapes (W=2048 words per lane, one
                   decode step's B·L·maxB pages), with seeded single- and
-                  double-bit flips so every SECDED status occurs; median
-                  times with CUDA events beside the plain version, the
-                  memory/ALU bound and, where one PyTorch call computes the
-                  same function, that call;
+                  double-bit flips so every SECDED status occurs; the DAEC
+                  kernels also at the campaign-daec tier (512 rows), with
+                  planted singles, adjacent and same-codeword doubles and
+                  the expected status count of each; median times with
+                  CUDA events beside the plain version, the bound (bytes
+                  over 3.35 TB/s, or integer ops over the card's int32
+                  rate: SMs × 64 × max SM clock, read from the card) and,
+                  where one PyTorch call computes the same function, that
+                  call;
   3. reference    a small model served on the card and on the CPU from the
                   same weights: logits within 1e-4, identical tokens;
   4. serve-cream  CREAM-Serve on qwen3-0.6b (full width and depth, float32,
@@ -51,10 +56,26 @@ exits nonzero:
                   parity8 check kernels), counts exactly the planted flips
                   and upgrades the pool to all-SECDED with every value intact;
  13. cache-profile  one full-batch get and set: host-clock time, device
-                  kernel time by class under torch.profiler, busy share.
+                  kernel time by class under torch.profiler, busy share;
+ 14. campaign-serve  the serve phases' requests (two on the paid tier, six
+                  on batch) on a pool with a quarter of its rows CREAM,
+                  under memcached-FIT single-bit injection with the tenant
+                  SLO armed (FaultCampaign, one tick per poll, a scrub
+                  every third): SECDED never silent nor detected, NONE
+                  silent, serve/batch escalated with zero loss, the paid
+                  tokens equal to serve-cream's, every gather seen by the
+                  shadow oracle;
+ 15. campaign-daec  a tenant's 512 SECDED pages under adjacent-double
+                  upsets: the SLO escalates to DAEC by carving a 512-row
+                  tier, zero silent reads in every class, no DAEC read
+                  detected; then planted singles and adjacent doubles in
+                  the tier are scrubbed, 2 beats per superbeat, as the
+                  plain version on the CPU does on the same rows, and the
+                  payload reads back unchanged.
 
 Then the card's name and power limit, one JSON line listing every kernel
-with its launches on the serve and cache phases and its phase-2 numbers,
+with its launches on the serve, cache and campaign phases and its phase-2
+numbers,
 and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 float32 products are full float32.
@@ -63,6 +84,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -73,7 +95,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 MEM_BYTES_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-ALU_OPS_S = 67e12          # non-tensor 32-bit rate (data sheet fp32 peak)
+#: int32 lanes an SM issues per clock on Hopper (64; __popc at 16 is not
+#: counted apart). main() sets INT_OPS_S = SMs x 64 x the SM's max clock,
+#: read from the card, and the ALU side of every bound uses it.
+INT_LANES_PER_SM = 64
+INT_OPS_S = None
+#: integer-pipe instructions per 128-bit superbeat of the DAEC kernels,
+#: counted by main() in the SASS of this build (see sass_loop_ops)
+DAEC_OPS: dict = {}
 W = 2048                   # words per lane per row: 64 KiB pages
 B, MAX_LEN = 4, 128        # decode slots, tokens per sequence
 NUM_ROWS = 1600            # fits 8 sessions in CREAM mode, not in SECDED
@@ -86,6 +115,8 @@ CACHE_ACCESSES = 131072    # per configuration and trace
 GET_BATCH, SET_BATCH = 512, 128
 CACHE_PROBE = 16
 ADAPT_FLIPS = 8            # single-bit flips planted in free SECDED rows
+DAEC_PAGES = 512           # campaign-daec payload (32 MiB), its tier's rows
+DAEC_PLANTS = 4            # singles and adjacent doubles of the final scrub
 #: benchmarks/cache_sim.py's fault-penalty model (µs per miss / per hit)
 FAULT_PENALTY_US, HIT_COST_US = 500.0, 0.1
 SLEEP_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of each timed call
@@ -108,6 +139,10 @@ KERNELS = {
                       "src/repro/kernels/parity8/kernel.py:67"),
     "scrub_rows": ("src/repro_torch/csrc/scrub.cu",
                    "src/repro/kernels/scrub/kernel.py:51"),
+    "daec_encode": ("src/repro_torch/csrc/daec.cu",
+                    "src/repro/kernels/daec/kernel.py:130"),
+    "daec_decode": ("src/repro_torch/csrc/daec.cu",
+                    "src/repro/kernels/daec/kernel.py:145"),
 }
 
 
@@ -143,9 +178,66 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
-    t_mem, t_ops = nbytes / MEM_BYTES_S, ops / ALU_OPS_S
-    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
+def int_rate(torch) -> dict:
+    """The card's int32 rate: SMs x INT_LANES_PER_SM x max SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    return dict(sms=sms, max_sm_clock_mhz=mhz,
+                int_ops_s=sms * INT_LANES_PER_SM * mhz * 1e6)
+
+
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_]*)(?:\.[A-Z0-9_.]+)?\s*([^;]*);")
+#: opcodes that do not issue on the integer ALU pipe: IMAD goes to the
+#: FMA pipe, the rest are memory and control
+SASS_OFF_ALU = {"IMAD", "LDG", "STG", "LDC", "LDS", "STS", "BRA", "BSSY",
+                "BSYNC", "EXIT", "NOP"}
+
+
+def sass_loop_ops(obj: Path) -> dict:
+    """Instructions one iteration of each kernel's grid-stride loop issues,
+    from ``cuobjdump -sass`` of the built object: ALU-pipe instructions
+    (``alu``) and IMADs, on the common path — a conditional forward branch
+    to a BSYNC (the DAEC decode's correction of a nonzero syndrome) is
+    taken, so the region it skips is not counted."""
+    from repro_torch.kernels import common
+    tool = Path(common._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(obj)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        insns = [(int(m[1], 16), bool(m[2]), m[3], m[4])
+                 for m in SASS_INSN.finditer(fn)]
+        op_at = {a: op for a, _, op, _ in insns}
+        jumps = [(a, int(args.split()[0], 16)) for a, _, op, args in insns
+                 if op == "BRA" and args.split()]
+        end, start = [(a, t) for a, t in jumps if t < a][-1]
+        counts: dict = {}
+        skip = -1
+        for a, pred, op, args in insns:
+            if not start <= a <= end or a < skip:
+                continue
+            if op == "BRA" and pred:
+                t = int(args.split()[0], 16)
+                if t > a and op_at.get(t) == "BSYNC":
+                    skip = t
+            counts[op] = counts.get(op, 0) + 1
+        out[fn.split()[0]] = dict(
+            alu=sum(n for op, n in counts.items() if op not in SASS_OFF_ALU),
+            imad=counts.get("IMAD", 0), opcodes=counts)
+    return out
+
+
+def bound_ms(nbytes: int, ops: int) -> tuple[float, str, float, float]:
+    """(bound ms, the side that binds, bytes side ms, operations side ms)."""
+    t_mem, t_ops = nbytes / MEM_BYTES_S, ops / INT_OPS_S
+    return (max(t_mem, t_ops) * 1e3,
+            "bytes" if t_mem >= t_ops else "operations",
+            t_mem * 1e3, t_ops * 1e3)
 
 
 def max_abs_err(a, b) -> int:
@@ -184,10 +276,43 @@ def plant_flips(data, codes, rng, n_each: int):
     return d, c
 
 
+def plant_daec(data, codes, rng, n_each: int):
+    """Seeded flips in superbeats of distinct rows of (data (N, D), codes
+    (N, D/8)) -> (flipped copies, expected beats per status 0..3): single
+    data bits and adjacent doubles (bits b, b+1: corrected, status 1),
+    single code-field bits (2), and same-codeword doubles (bits b, b+2:
+    detected, 3). Each planted superbeat reports on both its beats."""
+    import numpy as np
+    import torch
+    d, c = data.clone(), codes.clone()
+    n, dw = d.shape
+    rows = rng.choice(n, size=4 * n_each, replace=False)
+    bit = lambda b: torch.as_tensor(  # noqa: E731
+        (np.uint32(1) << np.asarray(b, np.uint32)).view(np.int32),
+        device=d.device)
+    for k, pat in enumerate(((0,), (0, 1), None, (0, 2))):
+        r = torch.as_tensor(rows[k * n_each:(k + 1) * n_each], device=d.device)
+        if pat is None:                      # a bit of the 16-bit field
+            wc = torch.as_tensor(rng.integers(0, dw // 8, n_each),
+                                 device=d.device)
+            c[r, wc] ^= bit(rng.integers(0, 32, n_each))
+            continue
+        w = torch.as_tensor(rng.integers(0, dw, n_each), device=d.device)
+        b0 = rng.integers(0, 32 - pat[-1], n_each)
+        mask = bit(b0)
+        for extra in pat[1:]:
+            mask = mask | bit(b0 + extra)
+        d[r, w] ^= mask
+    beats = 2 * n_each
+    return d, c, [n * dw // 2 - 4 * beats, 2 * beats, beats, beats]
+
+
 def phase_kernels(torch, np, dev) -> dict:
     from repro_torch.core import secded
     from repro_torch.core.layouts import (LANES, Layout, page_coords,
                                           total_pages)
+    from repro_torch.kernels.daec import ops as daec_ops
+    from repro_torch.kernels.daec import ref as daec_ref
     from repro_torch.kernels.migrate import ops as migrate_ops
     from repro_torch.kernels.migrate import ref as migrate_ref
     from repro_torch.kernels.mixed import ops as mixed_ops
@@ -290,6 +415,40 @@ def phase_kernels(torch, np, dev) -> dict:
             lambda: migrate_ref.gather_encode(cream, cids, NUM_ROWS), 3),
         library_ms=None,
         bound=bound_ms(4 * ((n_read + n) * D + n * W + n), 40 * n * D // 2))
+    # -- SEC-DAEC encode / decode: the serve shape and the campaign tier ----
+    enc, dec = {}, {}
+    for name, rows in (("serve", n), ("campaign_tier", DAEC_PAGES)):
+        data = words(rows, D)
+        codes = daec_ref.encode(data)
+        e_got = daec_ops.encode(data)
+        bad, bad_codes, want = plant_daec(data, codes, rng,
+                                          n_each=max(1, rows // 16))
+        d_got = daec_ops.decode(bad, bad_codes)
+        d_want = daec_ref.decode(bad, bad_codes)
+        torch.cuda.synchronize()
+        counts = torch.bincount(d_got[2].reshape(-1), minlength=4).tolist()
+        check(counts == want, f"daec decode statuses {counts} != {want}")
+        superbeats = rows * D // 4
+        enc[name] = dict(
+            rows=rows, max_abs_err=max_abs_err(e_got, codes),
+            ms=median_ms(lambda: daec_ops.encode(data), 20),
+            plain_ms=median_ms(lambda: daec_ref.encode(data), 3),
+            bound=bound_ms(4 * (rows * D + rows * D // 8),
+                           DAEC_OPS["encode"] * superbeats))
+        dec[name] = dict(
+            rows=rows, max_abs_err=max_abs_err(d_got, d_want),
+            status_beats=counts,
+            ms=median_ms(lambda: daec_ops.decode(bad, bad_codes), 20),
+            plain_ms=median_ms(lambda: daec_ref.decode(bad, bad_codes), 3),
+            bound=bound_ms(4 * (2 * rows * D + 2 * rows * D // 8
+                                + rows * D // 2),
+                           DAEC_OPS["decode"] * superbeats))
+        del data, codes, bad, bad_codes, d_got, d_want
+    for name, per_shape in (("daec_encode", enc), ("daec_decode", dec)):
+        out[name] = dict(per_shape["serve"], library_ms=None,
+                         max_abs_err=max(r["max_abs_err"]
+                                         for r in per_shape.values()),
+                         shapes=per_shape)
     for name, r in out.items():
         check(r["max_abs_err"] == 0, f"{name} disagrees with its plain version")
     return dict(n_pages=n, row_words=W, kernels=out)
@@ -988,6 +1147,232 @@ def phase_cache_profile(torch, np, cache) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-15: CREAM-Campaign
+# ---------------------------------------------------------------------------
+
+
+def phase_campaign_serve(torch, np, tok_c) -> tuple[dict, dict]:
+    """The serve phases' requests under memcached-FIT injection with the
+    SLO loop armed (tests/test_faults_campaign.py ``campaign_run`` at full
+    width): the first two requests on the paid tier (SECDED frames), the
+    rest on batch (NONE frames, SLO escalation up to SECDED); one campaign
+    tick per poll and a scrub every third tick."""
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core.injection import SINGLES
+    from repro_torch.core.layouts import GROUP_ROWS, Layout
+    from repro_torch.core.protection import Protection, at_least
+    from repro_torch.faults import (MEMCACHED_FIT, FaultCampaign,
+                                    hours_for_expected_flips)
+    from repro_torch.kernels import common
+    from repro_torch.obs import slo
+    from repro_torch.serve import Engine
+    from repro_torch.vm import VirtualMemory
+    from repro_torch.vm.policy import TenantSLO, VMPolicy
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    slo.TRACKER.reset()
+    # benchmarks/bench_faults.py: 3/4 of the rows stay SECDED, room for
+    # the paid tier and for every batch page the escalation relocates
+    boundary = (NUM_ROWS // 4 // GROUP_ROWS) * GROUP_ROWS
+    vm = VirtualMemory(row_words=W, device=DEVICE)
+    vm.add_pool("kv", NUM_ROWS, Layout.INTERWRAP, boundary=boundary)
+    eng = Engine(cfg, max_batch=B, max_len=MAX_LEN, vm=vm, pool="kv",
+                 mode="cream", row_words=W, seed=SEED)
+    policy = VMPolicy(vm)
+    policy.set_tenant_slo("serve", "batch", TenantSLO(
+        max_error_rate=1e-3, min_reads=64, ceiling=Protection.SECDED))
+    storage = vm.pools["kv"].storage
+    hours = hours_for_expected_flips(
+        MEMCACHED_FIT, storage.numel() * storage.element_size(), 5.0)
+    campaign = FaultCampaign(vm, "kv", policy=policy, engine=eng,
+                             fit_per_mbit=MEMCACHED_FIT, hours_per_step=hours,
+                             mix=SINGLES, n_hard=0, seed=5)
+    reqs = requests(np, cfg.vocab_size)
+    for i, r in enumerate(reqs):
+        r.tier = "paid" if i < 2 else "batch"
+        eng.submit(r)
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    t0 = time.perf_counter()
+    done = []
+    while eng.sched.has_work():
+        done.extend(eng.poll())
+        campaign.tick()
+        if campaign.steps % 3 == 0:          # periodic repair sweep
+            policy.scrub_all()
+    campaign.observe()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    report = campaign.report()
+    campaign.detach()
+    census = {k: dataclasses.asdict(v) for k, v in report.census.items()}
+    check(campaign.injected > 0, "the campaign injected no flip")
+    sec = report.census["secded"]
+    check(sec.silent == 0 and sec.detected == 0 and sec.corrected > 0,
+          f"SECDED census {census['secded']}")
+    check(report.census["none"].silent > 0, "no silent NONE read")
+    esc = report.escalations
+    check(bool(esc) and (esc[0]["tenant"], esc[0]["segment"])
+          == ("serve", "batch") and esc[0]["moved"] > 0,
+          f"serve/batch did not escalate: {esc}")
+    target = vm.tenants["serve"].segments["batch"]
+    for vpn, pte in vm.tenants["serve"].entries.items():
+        if pte.segment == "batch" and pte.pool is not None:
+            check(at_least(vm.effective_protection("serve", vpn), target),
+                  f"batch page {vpn} below its contract {target}")
+    check(len(done) == len(reqs) and all(len(r.generated) == MAX_NEW
+                                         for r in reqs),
+          "requests unfinished")
+    check([r.generated for r in reqs[:2]] == tok_c[:2],
+          "paid tokens differ from serve-cream's")
+    # every engine gather went through the shadow: the decode step's pages
+    # plus the relocation reads, none by the fused mixed read
+    # (plus relocation and swap-out reads)
+    gathered = eng.steps * B * eng.n_layers * eng.kv.max_blocks
+    reads = sum(c.reads for c in report.census.values())
+    check(reads >= gathered, "the shadow missed engine reads")
+    check(launches.get("mixed_read_correct", 0) == 0,
+          "the fused read bypassed the shadow")
+    tokens = sum(len(r.generated) for r in reqs)
+    return dict(rows=NUM_ROWS, boundary=boundary, hours_per_step=hours,
+                ticks=campaign.steps, flips=campaign.injected,
+                census=census, rates=report.rates(),
+                escalations=[dict(e, **{"from": e["from"].value,
+                                        "to": e["to"].value}) for e in esc],
+                first_escalation_step=campaign.first_escalation_step,
+                decode_steps=eng.steps, gathered_pages=gathered,
+                shadow_reads=reads, preemptions=eng.sched.stats.get(
+                    "preemptions"), tokens=tokens, tokens_per_s=tokens / wall,
+                paid_tokens_equal=True, seconds=wall,
+                launches=launches), launches
+
+
+def phase_campaign_daec(torch, np) -> tuple[dict, dict]:
+    """The reference's SECDED -> DAEC acceptance campaign at full page
+    size: a tenant's 512 SECDED pages under adjacent-double upsets, the SLO
+    escalating to DAEC through a carved tier; then a final scrub of planted
+    singles and adjacent doubles in the tier, held against the plain
+    version on the CPU."""
+    from repro_torch.core.injection import ErrorMix
+    from repro_torch.core.layouts import Layout
+    from repro_torch.core.pool import make_pool
+    from repro_torch.core.protection import Protection
+    from repro_torch.faults import (MEMCACHED_FIT, FaultCampaign,
+                                    hours_for_expected_flips)
+    from repro_torch.kernels import common
+    from repro_torch.obs import slo
+    from repro_torch.vm import VirtualMemory
+    from repro_torch.vm.policy import TenantSLO, VMPolicy
+    slo.TRACKER.reset()
+    vm = VirtualMemory(row_words=W, device=DEVICE)
+    vm.add_pool("p", NUM_ROWS, Layout.INTERWRAP, boundary=0)  # all SECDED
+    vm.create_tenant("t", segments={"seg": Protection.SECDED})
+    policy = VMPolicy(vm)
+    policy.set_tenant_slo("t", "seg", TenantSLO(
+        max_error_rate=1e-3, min_reads=32, ceiling=Protection.DAEC))
+    vpns = vm.alloc("t", DAEC_PAGES, segment="seg")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    payload = torch.randint(-2**31, 2**31, (DAEC_PAGES, vm.page_words),
+                            generator=gen, device=DEVICE, dtype=torch.int32)
+    vm.write("t", vpns, payload)
+    phys0 = np.asarray([vm.translate("t", v).phys for v in vpns])
+    storage = vm.pools["p"].storage
+    hours = hours_for_expected_flips(
+        MEMCACHED_FIT, storage.numel() * storage.element_size(), 6.0)
+    campaign = FaultCampaign(
+        vm, "p", policy=policy, fit_per_mbit=MEMCACHED_FIT,
+        hours_per_step=hours, mix=ErrorMix(single=0.0, adjacent_double=1.0),
+        seed=11)
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    t0 = time.perf_counter()
+    escalated = []
+    for _ in range(40):
+        campaign.inject()
+        vm.read("t", vpns)
+        campaign.observe()
+        escalated = campaign.escalate()
+        if escalated:
+            break
+    for _ in range(6):                      # post-escalation, on the tier
+        campaign.inject()
+        vm.read("t", vpns)
+        campaign.observe()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    report = campaign.report()
+    census = {k: dataclasses.asdict(v) for k, v in report.census.items()}
+    check(bool(escalated) and escalated[0]["to"] == Protection.DAEC,
+          f"no escalation to DAEC: {escalated}")
+    check(all(vm.effective_protection("t", v) == Protection.DAEC
+              for v in vpns), "a page is not on a DAEC frame")
+    check(all(c.silent == 0 for c in report.census.values()),
+          f"silent reads: {census}")
+    daec = report.census["daec"]
+    check(daec.reads > 0 and daec.detected == 0, f"DAEC census {census}")
+    check(launches.get("daec_encode", 0) > 0
+          and launches.get("daec_decode", 0) > 0, "daec kernels not launched")
+    # pages whose SECDED reads were never flagged hold the payload exactly
+    # (a flagged page was surfaced wrong, with its flag, and relocated so)
+    sh = campaign.shadow
+    flagged = sh._detected[phys0] > 0
+    data = vm.read("t", vpns)
+    keep = torch.as_tensor(np.flatnonzero(~flagged), device=DEVICE)
+    check(torch.equal(data[keep], payload[keep]), "an unflagged page changed")
+    # the final scrub: a clean-up sweep, then planted flips in the tier
+    pool = vm.pools["p"]
+    stats0 = policy.scrub_all()["p"]
+    snapshot = vm.read("t", vpns)
+    rng = np.random.default_rng(SEED + 12)
+    tier = sorted(set(range(pool.daec_start, pool.num_rows))
+                  & {vm.translate("t", v).phys for v in vpns}
+                  - set(stats0.corrupt_rows))
+    rows = rng.choice(tier, 2 * DAEC_PLANTS, replace=False)
+    sto = pool.storage
+    for k, r in enumerate(rows):             # one superbeat each
+        lane, word = int(rng.integers(0, 8)), int(rng.integers(0, W))
+        b = int(rng.integers(0, 31))
+        sto[int(r), lane, word] ^= common.s32(
+            (1 if k < DAEC_PLANTS else 3) << b)
+    planted = sto[torch.as_tensor(rows, device=DEVICE)].cpu()
+    stats1 = policy.scrub_all()["p"]
+    cpu = make_pool(len(rows), Layout.INTERWRAP, boundary=0, row_words=W,
+                    daec_rows=len(rows), device="cpu")
+    cpu.storage.copy_(planted)
+    cpu, cstats = cpu.scrub()
+    beats = 2 * 2 * DAEC_PLANTS
+    check((stats1.corrected_data, stats1.corrected_code) == (beats, 0)
+          and stats1.detected_uncorrectable
+          == stats0.detected_uncorrectable,
+          f"final scrub {stats1} after {stats0}")
+    check((cstats.corrected_data, cstats.corrected_code,
+           cstats.detected_uncorrectable) == (beats, 0, 0),
+          f"plain scrub {cstats}")
+    check(torch.equal(vm.pools["p"].storage[torch.as_tensor(
+        rows, device=DEVICE)].cpu(), cpu.storage),
+          "card and plain scrub repaired differently")
+    check(torch.equal(vm.read("t", vpns), snapshot),
+          "the payload changed across the final scrub")
+    campaign.detach()
+    return dict(rows=NUM_ROWS, pages=DAEC_PAGES, hours_per_step=hours,
+                ticks=campaign.steps, flips=campaign.injected,
+                census=census, rates=report.rates(),
+                escalations=[dict(e, **{"from": e["from"].value,
+                                        "to": e["to"].value})
+                             for e in report.escalations],
+                first_escalation_step=campaign.first_escalation_step,
+                daec_rows=vm.pools["p"].daec_rows,
+                flagged_pages=int(flagged.sum()), seconds=wall,
+                final_scrub=dict(
+                    planted_superbeats=len(rows),
+                    before=dataclasses.asdict(stats0),
+                    after=dataclasses.asdict(stats1),
+                    plain_cpu=dataclasses.asdict(cstats)),
+                launches=launches), launches
+
+
 def summary(stats: dict, launches: dict, wall: float) -> dict:
     keep = ("tokens", "tokens_per_s", "p50_latency_ms", "p99_latency_ms",
             "decode_steps", "device_pages", "preemptions", "restores",
@@ -1013,7 +1398,17 @@ def main() -> int:
     common.library()
     log = (common.BUILD_DIR / "build.log").read_text() \
         if (common.BUILD_DIR / "build.log").exists() else ""
+    global INT_OPS_S
+    rate = int_rate(torch)
+    INT_OPS_S = rate["int_ops_s"]
+    # one loop iteration handles one packed code word: two superbeats
+    sass = {re.search(r"daec_(encode|decode)_kernel", name)[1]: r
+            for name, r in sass_loop_ops(common.BUILD_DIR / "daec.o").items()}
+    DAEC_OPS.update({k: r["alu"] / 2 for k, r in sass.items()})
+    check(set(DAEC_OPS) == {"encode", "decode"}, f"daec SASS {list(sass)}")
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
+              sources=list(common.SOURCES), int_rate=rate,
+              daec_sass_per_loop=sass, daec_ops_per_superbeat=DAEC_OPS,
               ptxas=[ln.strip() for ln in log.splitlines()
                      if "registers" in ln]))
 
@@ -1073,7 +1468,13 @@ def main() -> int:
     phase("cache-demotion", dem)
     adapt, l_a = phase_cache_adapt(torch, np)
     phase("cache-adapt", adapt)
-    main_paths = [l_c, l_s, l_r, *l_z.values(), *l_w.values(), l_d, l_a]
+    camp, l_cs = phase_campaign_serve(torch, np, tok_c)
+    phase("campaign-serve", camp)
+    torch.cuda.empty_cache()
+    camp, l_cd = phase_campaign_daec(torch, np)
+    phase("campaign-daec", camp)
+    main_paths = [l_c, l_s, l_r, *l_z.values(), *l_w.values(), l_d, l_a,
+                  l_cs, l_cd]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1083,7 +1484,7 @@ def main() -> int:
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = kern["kernels"][name]
-        bms, by = r["bound"]
+        bms, by = r["bound"][:2]
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(l.get(name, 0) for l in main_paths),

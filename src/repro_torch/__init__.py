@@ -8,15 +8,20 @@ bit-exact agreement and the model to float32 tolerance.
 What this package holds today:
 
   * :mod:`repro_torch.core`    — layouts, protection ladder, the plain
-    Hsiao SECDED(72,64) and parity8 codecs, the ``(R, 9, W)`` pool with
-    its boundary register (SECDED, PARITY and unprotected regions), the
-    scrubber and the health monitor;
+    Hsiao SECDED(72,64), SEC-DAEC(144,128) and parity8 codecs, the
+    ``(R, 9, W)`` pool with its boundary register (SEC-DAEC, SECDED,
+    PARITY and unprotected regions), the scrubber, the health monitor and
+    bit-flip fault injection;
   * :mod:`repro_torch.kernels` — hand-written CUDA kernels for Hopper
-    (SECDED encode/decode, the fused mixed-pool read, the migration
-    gather/re-encode, parity8 encode/check, the fused hash probe + gather,
-    the scrub sweep), each beside its plain PyTorch version;
+    (SECDED and SEC-DAEC encode/decode, the fused mixed-pool read, the
+    migration gather/re-encode, parity8 encode/check, the fused hash probe
+    + gather, the scrub sweep), each beside its plain PyTorch version;
   * :mod:`repro_torch.vm`      — CREAM-VM tenants, frames, host swap,
-    zero-loss repartition and the scrub → monitor → adapt policy;
+    zero-loss repartition and relocation, the scrub → monitor → adapt
+    policy and the tenant reliability SLOs;
+  * :mod:`repro_torch.faults`  — CREAM-Campaign: FIT-driven live
+    injection, the shadow oracle and the closed SLO loop;
+  * :mod:`repro_torch.obs`     — the reliability / capacity SLO tracker;
   * :mod:`repro_torch.objcache` — CREAM-Cache, the key-value object cache
     on pool pages (the paper's memcached and WebSearch workloads);
   * :mod:`repro_torch.models`  — the attention-only decoder for paged

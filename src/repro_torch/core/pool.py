@@ -15,6 +15,12 @@ gather or scatter plus the batched SECDED codec
 (:mod:`repro_torch.kernels.secded` — the CUDA kernels for a pool on the
 card, the plain versions on the CPU).
 
+``daec_rows`` carves the top of the protected region into the SEC-DAEC
+tier: pages ``[R - daec_rows, R)`` keep :mod:`repro_torch.core.daec` code
+fields in the same code lane (the same shapes as SECDED's), maintained by
+the daec kernels (:mod:`repro_torch.kernels.daec`); only the DAEC pages of
+a batch go through them.
+
 PARITY pools with a CREAM region keep an 8-bit parity byte per 64-byte
 line of every CREAM and extra page in packed tables at the bottom of the
 code lane (:func:`~repro_torch.core.layouts.parity_coords`), maintained by
@@ -29,10 +35,7 @@ points with ``donate_argnums=(0,)``) — so the returned state shares the
 input's storage and the input must be dropped, as every owner does. The
 non-donating functions (:func:`write_pages_any`, :func:`repartition`,
 ``migrate(donate=False)``, ``scrub``) work on a copy and leave the input
-state valid.
-
-Not in this slice: the SEC-DAEC tier (``daec_rows > 0`` raises
-``NotImplementedError``).
+state valid, and so does :func:`set_daec_rows`.
 """
 from __future__ import annotations
 
@@ -47,11 +50,9 @@ from repro_torch.core.layouts import (CODE_LANE, DATA_LANES, DEFAULT_ROW_WORDS,
                                       extra_page_count, page_coords,
                                       parity_coords)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.daec import ops as daec_ops
 from repro_torch.kernels.parity8 import ops as parity8_ops
 from repro_torch.kernels.secded import ops as secded_ops
-
-_DAEC_TODO = ("the SEC-DAEC tier needs the daec kernel (ROADMAP, queue 2: "
-              "daec encode/decode)")
 
 
 @dataclass
@@ -135,7 +136,8 @@ class PoolState:
         return repartition(self, new_boundary)
 
     def set_daec_rows(self, daec_rows: int) -> "PoolState":
-        raise NotImplementedError(_DAEC_TODO)
+        """Resize the SEC-DAEC tier (see :func:`set_daec_rows`)."""
+        return set_daec_rows(self, daec_rows)
 
     def scrub(self, use_kernel: bool = False):
         """Sweep + repair; returns ``(new_state, ScrubStats)`` and leaves
@@ -166,8 +168,6 @@ def make_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
         raise ValueError(
             f"daec_rows ({daec_rows}) must fit the protected region "
             f"[{boundary}, {num_rows})")
-    if daec_rows:
-        raise NotImplementedError(_DAEC_TODO)
     if row_words % 8:
         raise ValueError("row_words must be a multiple of 8")
     storage = torch.zeros((num_rows, LANES, row_words), dtype=torch.int32,
@@ -194,11 +194,6 @@ def _host_ids(state: PoolState, pages) -> np.ndarray:
         raise ValueError(
             f"pages {bad.tolist()} out of range [0, {state.num_pages})")
     return arr
-
-
-def _as_page_array(state: PoolState, pages) -> torch.Tensor:
-    """Range-checked page ids -> int64 tensor on the pool's device."""
-    return torch.from_numpy(_host_ids(state, pages)).to(state.device)
 
 
 def _landing_rows(ids: np.ndarray, valid) -> np.ndarray:
@@ -234,13 +229,17 @@ def read_pages_any_status(state: PoolState, pages
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batch read with per-page status for an arbitrary page-id vector.
 
-    Returns ``(data (n, page_words) int32, status (n,) int32)``: SECDED pages
-    report their worst beat's decode status (corrections are applied to the
-    returned data, not persisted); on a PARITY pool, CREAM-region and extra
-    pages report 3 when a line fails its parity check (detection only) and
-    0 otherwise; unprotected pages report 0.
+    Returns ``(data (n, page_words) int32, status (n,) int32)``: SECDED and
+    DAEC pages report their worst beat's decode status (corrections are
+    applied to the returned data, not persisted); on a PARITY pool,
+    CREAM-region and extra pages report 3 when a line fails its parity
+    check (detection only) and 0 otherwise; unprotected pages report 0.
+    The DAEC pages of the batch alone go through the DAEC decode (the
+    reference decodes the whole batch with both codecs and selects, which
+    gives the same bits).
     """
-    pages = _as_page_array(state, pages)
+    ids = _host_ids(state, pages)
+    pages = torch.from_numpy(ids).to(state.device)
     n = pages.shape[0]
     if n == 0:
         return (torch.zeros((0, state.page_words), dtype=torch.int32,
@@ -255,13 +254,29 @@ def read_pages_any_status(state: PoolState, pages
         crow = torch.clamp(pages, state.boundary, state.num_rows - 1)
         codes = state.storage[crow, CODE_LANE, :]
         fixed, _, st = secded_ops.decode(data, codes)
+        pst = st.amax(dim=-1)
+        daec = _daec_rows_of(state, ids)
+        if daec is not None:                  # DAEC tier atop the region
+            dfixed, _, dst = daec_ops.decode(data[daec].contiguous(),
+                                             codes[daec].contiguous())
+            fixed[daec] = dfixed
+            pst[daec] = dst.amax(dim=-1)
         data = torch.where(is_sec[:, None], fixed, data)
-        status = torch.where(is_sec, st.amax(dim=-1), 0).to(torch.int32)
+        status = torch.where(is_sec, pst, 0).to(torch.int32)
     if state.has_parity:
         packed = state.storage[_parity_index(state, pages)]
         pst = parity8_ops.check(data, packed).amax(dim=-1) * 3
         status = torch.where(is_sec, status, pst).to(torch.int32)
     return data, status
+
+
+def _daec_rows_of(state: PoolState, ids: np.ndarray) -> torch.Tensor | None:
+    """Batch positions of the DAEC-tier pages among ``ids`` (a tensor on
+    the pool's device), or None when the batch has none."""
+    if not state.daec_rows:
+        return None
+    sel = np.flatnonzero((ids >= state.daec_start) & (ids < state.num_rows))
+    return torch.from_numpy(sel).to(state.device) if sel.size else None
 
 
 def _parity_index(state: PoolState, pages: torch.Tensor) -> tuple:
@@ -306,9 +321,12 @@ def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
     storage = state.storage
     storage[rows, lanes, :] = data.reshape(-1, DATA_LANES, state.row_words)
     is_sec = (ids >= state.boundary) & (ids < state.num_rows)
-    if is_sec.any():
-        sel = torch.from_numpy(np.flatnonzero(is_sec)).to(state.device)
-        storage[pages[sel], CODE_LANE, :] = secded_ops.encode(data[sel])
+    is_daec = is_sec & (ids >= state.daec_start)
+    for mask, codec in ((is_sec & ~is_daec, secded_ops),
+                        (is_daec, daec_ops)):
+        if mask.any():
+            sel = torch.from_numpy(np.flatnonzero(mask)).to(state.device)
+            storage[pages[sel], CODE_LANE, :] = codec.encode(data[sel])
     if state.has_parity and not is_sec.all():
         sel = torch.from_numpy(np.flatnonzero(~is_sec)).to(state.device)
         storage[_parity_index(state, pages[sel])] = parity8_ops.encode(
@@ -325,6 +343,37 @@ def write_pages_any(state: PoolState, pages, data,
     """
     copy = dataclasses.replace(state, storage=state.storage.clone())
     return _write_in_place(copy, pages, data, valid)
+
+
+def set_daec_rows(state: PoolState, daec_rows: int) -> PoolState:
+    """Re-tier the top of the protected region to or from SEC-DAEC.
+
+    The affected rows are decoded with the outgoing codec (a last chance
+    to correct) and re-encoded with the incoming one, so their data
+    survives bit-exact and occupied frames are safe to convert. Works on a
+    copy, like the reference: ``state`` stays valid.
+    """
+    n = int(daec_rows)
+    R = state.num_rows
+    if not 0 <= n <= R - state.boundary:
+        raise ValueError(
+            f"daec_rows ({n}) must fit the protected region "
+            f"[{state.boundary}, {R})")
+    old = state.daec_rows
+    if n == old:
+        return state
+    rows = slice(R - max(old, n), R - min(old, n))
+    data = state.storage[rows, :DATA_LANES, :].reshape(
+        abs(n - old), -1).contiguous()
+    codes = state.storage[rows, CODE_LANE, :].contiguous()
+    outgoing, incoming = (secded_ops, daec_ops) if n > old \
+        else (daec_ops, secded_ops)
+    fixed, _, _ = outgoing.decode(data, codes)
+    storage = state.storage.clone()
+    storage[rows, :DATA_LANES, :] = fixed.reshape(-1, DATA_LANES,
+                                                  state.row_words)
+    storage[rows, CODE_LANE, :] = incoming.encode(fixed)
+    return dataclasses.replace(state, storage=storage, daec_rows=n)
 
 
 # ---------------------------------------------------------------------------

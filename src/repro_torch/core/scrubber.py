@@ -2,10 +2,13 @@
 health monitor (paper §3.1).
 
 Port of ``repro/core/scrubber.py``. The SECDED rows are swept by the scrub
-kernel (:mod:`repro_torch.kernels.scrub`) and the PARITY layout's CREAM
-rows are checked against their parity tables by the parity8 kernel; both
-dispatch by the pool's device, like every op of the port: a pool on the
-card launches the kernels, a pool on the CPU runs their plain versions.
+kernel (:mod:`repro_torch.kernels.scrub`), the SEC-DAEC tier by the daec
+decode kernel (its code lane holds one packed word per 8 data words, so
+the block decode consumes the rows directly, as in the reference), and the
+PARITY layout's CREAM rows are checked against their parity tables by the
+parity8 kernel. All dispatch by the pool's device, like every op of the
+port: a pool on the card launches the kernels, a pool on the CPU runs
+their plain versions.
 """
 from __future__ import annotations
 
@@ -17,11 +20,9 @@ import torch
 from repro_torch.core import parity8, secded
 from repro_torch.core.layouts import CODE_LANE, DATA_LANES
 from repro_torch.core.pool import PoolState
+from repro_torch.kernels.daec import ops as daec_ops
 from repro_torch.kernels.parity8 import ops as parity8_ops
 from repro_torch.kernels.scrub import ops as scrub_ops
-
-_DAEC_TODO = ("sweeping a SEC-DAEC tier needs the daec kernels (ROADMAP, "
-              "queue 1 item 2: SEC-DAEC tier)")
 
 
 @dataclass(frozen=True)
@@ -50,11 +51,28 @@ class ScrubStats:
         return errors / checked if checked else 0.0
 
 
+def _scrub_daec_rows(storage: torch.Tensor, start: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode + correct the DAEC tier rows ``[start, R)`` of a pool buffer
+    -> ``(storage', status, row_bad)``. Functional: ``storage`` itself is
+    left as it was."""
+    n = storage.shape[0] - start
+    data = storage[start:, :DATA_LANES, :].reshape(n, -1).contiguous()
+    codes = storage[start:, CODE_LANE, :].contiguous()
+    data2, codes2, status = daec_ops.decode(data, codes)
+    storage = storage.clone()
+    storage[start:, :DATA_LANES, :] = data2.reshape(n, DATA_LANES, -1)
+    storage[start:, CODE_LANE, :] = codes2
+    row_bad = status.amax(dim=-1) == secded.DETECTED_UNCORRECTABLE
+    return storage, status, row_bad
+
+
 def scrub(state: PoolState, use_kernel: bool = False
           ) -> tuple[PoolState, ScrubStats]:
     """One full scrub sweep -> ``(new_state, stats)``.
 
-    SECDED rows are repaired (corrected data and code lane); PARITY-layout
+    SECDED rows and the DAEC tier are repaired (corrected data and code
+    lane; a DAEC superbeat's status counts on both its beats); PARITY-layout
     CREAM rows are checked (detection only) and reported in
     ``corrupt_rows`` so the owner can restore them. Functional, as the
     reference: ``state`` is left valid.
@@ -67,19 +85,22 @@ def scrub(state: PoolState, use_kernel: bool = False
     del use_kernel
     storage = state.storage
     B, R = state.boundary, state.num_rows
-    if state.daec_start < R:
-        raise NotImplementedError(_DAEC_TODO)
+    D = state.daec_start     # the SECDED span ends where the DAEC tier begins
 
     corrected_data = corrected_code = detected = beats = 0
     corrupt_rows: list[int] = []
-    if B < R:  # SECDED region
-        storage, status, row_bad = scrub_ops.scrub_secded(storage, B, R)
+    for start, stop, sweep in (
+            (B, D, lambda s: scrub_ops.scrub_secded(s, B, D)),  # SECDED
+            (D, R, lambda s: _scrub_daec_rows(s, D))):          # DAEC tier
+        if start >= stop:
+            continue
+        storage, status, row_bad = sweep(storage)
         counts = torch.bincount(status.reshape(-1), minlength=4).tolist()
-        beats = int(status.numel())
-        corrected_data = counts[secded.CORRECTED_DATA]
-        corrected_code = counts[secded.CORRECTED_CODE]
-        detected = counts[secded.DETECTED_UNCORRECTABLE]
-        corrupt_rows += (B + torch.nonzero(row_bad)[:, 0]).tolist()
+        beats += int(status.numel())
+        corrected_data += counts[secded.CORRECTED_DATA]
+        corrected_code += counts[secded.CORRECTED_CODE]
+        detected += counts[secded.DETECTED_UNCORRECTABLE]
+        corrupt_rows += (start + torch.nonzero(row_bad)[:, 0]).tolist()
 
     parity_lines = parity_corrupt = 0
     if state.has_parity:

@@ -14,10 +14,11 @@ Ported (with their TPU originals in ``repro/kernels/``):
   parity8   8-bit-per-line parity encode / check       csrc/parity8.cu
   hash      fused hash probe + mixed gather + correct  csrc/hash.cu
   scrub     SECDED scrub sweep of (R, 9, W) rows       csrc/scrub.cu
+  daec      SEC-DAEC(144,128) encode / decode-correct  csrc/daec.cu
 
 Shared device code: ``csrc/secded.cuh`` (Hsiao tables, in-register
 correct) and ``csrc/coords.cuh`` (page -> (row, lane) of one slice).
 
-Still to port (ROADMAP, queue 2): daec, mixed ``read_correct_routed``,
-interwrap, flash_attention, ecc_matmul.
+Still to port (ROADMAP, queue 2): interwrap, flash_attention, ecc_matmul,
+mixed ``read_correct_routed``.
 """

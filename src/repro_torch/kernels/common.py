@@ -109,7 +109,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("secded.cu", "mixed.cu", "migrate.cu", "parity8.cu", "hash.cu",
-           "scrub.cu")
+           "scrub.cu", "daec.cu")
 HEADERS = ("secded.cuh", "coords.cuh")
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -136,6 +136,10 @@ ENTRIES = {
                          _P),
     # storage, out, status, n_code_words, W, stream
     "scrub_rows": (_P, _P, _P, _I, _I, _P),
+    # data, codes, n_code_words, stream
+    "daec_encode": (_P, _P, _I, _P),
+    # data, codes, out_data, out_codes, status, n_code_words, stream
+    "daec_decode": (_P, _P, _P, _P, _P, _I, _P),
 }
 
 

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layouts import Layout
+from repro_torch.core.pool import PoolState
 from repro_torch.kernels.mixed import ops as mixed_ops
 from repro_torch.models import build_model
 from repro_torch.models import transformer
@@ -151,11 +152,13 @@ class Engine:
     def _gather_pages(self, phys: np.ndarray) -> torch.Tensor:
         """The decode step's ONE page gather: the fused mixed-pool read.
 
-        A DAEC tier would fall through to ``pool.read`` — the mixed kernel
-        corrects with SECDED only and would mis-decode those rows.
+        Only a bare pool without a DAEC tier takes it. A DAEC tier falls
+        through to ``pool.read`` — the mixed kernel corrects with SECDED
+        only and would mis-decode those rows — and so does a wrapped pool
+        (the fault campaign's shadow), whose ``read`` must see every page.
         """
         pool = self.pool
-        if pool.daec_rows == 0:
+        if isinstance(pool, PoolState) and pool.daec_rows == 0:
             return mixed_ops.read_correct(pool.storage, self._ids(phys),
                                           pool.layout, pool.num_rows,
                                           pool.boundary)

@@ -6,8 +6,9 @@ sharded pools are a later slice).
   * **frame** — one physical pool page ``(pool_name, phys)`` (regular pages
     ``[0, R)``, extra pages ``[R, R + extra)``);
   * **storage class** — the protection a frame provides today, from its
-    pool's boundary register: SECDED for rows ``[boundary, R)``, the CREAM
-    layout's protection elsewhere;
+    pool's boundary register and SEC-DAEC tier: DAEC for rows
+    ``[R - daec_rows, R)``, SECDED for the rest of ``[boundary, R)``, the
+    CREAM layout's protection elsewhere;
   * **reliability class** — what a tenant requested for a segment; a frame
     may serve it iff its storage class is at least as strong;
   * **host swap tier** — overflow residency in host memory
@@ -44,6 +45,15 @@ def frame_class(state: PoolState, phys: int) -> Protection:
             return Protection.DAEC
         return Protection.SECDED
     return cream_protection(state.layout)
+
+
+def frame_classes(state: PoolState, phys: np.ndarray) -> np.ndarray:
+    """:func:`frame_class` of a vector of frames -> their class names."""
+    return np.where(
+        (phys >= state.boundary) & (phys < state.num_rows),
+        np.where(phys >= state.num_rows - state.daec_rows,
+                 Protection.DAEC.value, Protection.SECDED.value),
+        cream_protection(state.layout).value)
 
 
 @dataclass
@@ -229,6 +239,14 @@ class VirtualMemory:
     # -- translation ---------------------------------------------------------
     def translate(self, tenant: str, vpn: int) -> PTE:
         return self.tenants[tenant].entries[vpn]
+
+    def effective_protection(self, tenant: str, vpn: int
+                             ) -> Protection | None:
+        """Storage class actually backing a page (None = host tier)."""
+        pte = self.translate(tenant, vpn)
+        if pte.pool is None:
+            return None
+        return frame_class(self.pools[pte.pool], pte.phys)
 
     # -- allocation ----------------------------------------------------------
     def alloc(self, tenant: str, n: int, segment: str = "default",

@@ -1,6 +1,8 @@
 """Live page migration across pools, protection modes, and the host tier.
 
-Port of ``repro/vm/migration.py``: the zero-loss repartition transaction.
+Port of ``repro/vm/migration.py``: the zero-loss repartition transaction
+and ad-hoc relocation (:meth:`MigrationEngine.relocate`, which the tenant
+SLO escalation uses).
 
   * **protection upgrade** (boundary shrinks, SECDED region grows): the
     extra pages the move would evict are read out in one fused
@@ -12,7 +14,11 @@ Port of ``repro/vm/migration.py``: the zero-loss repartition transaction.
     first.
 
 Destination writes into SECDED frames reuse the codes the kernel already
-computed; everything else goes through the pool's ``write``.
+computed; everything else goes through the pool's ``write``. Both fused
+paths (the gather/re-encode read and the coded-row scatter) are taken only
+for a bare :class:`~repro_torch.core.pool.PoolState`: a wrapped pool (the
+fault campaign's :class:`~repro_torch.faults.shadow.ShadowedPool`) goes
+through its own ``read`` and ``write``, so its oracle sees every access.
 """
 from __future__ import annotations
 
@@ -60,11 +66,12 @@ class MigrationEngine:
                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """Batch-read frames -> (data, precomputed SECDED codes or None).
 
-        Pure-CREAM InterWrap batches take the fused gather/re-encode kernel
-        (codes for the destination come free); any other mix is one
-        decode-corrected pool read.
+        Pure-CREAM InterWrap batches on a bare pool take the fused
+        gather/re-encode kernel (codes for the destination come free); any
+        other mix, and any wrapped pool, is one decode-corrected pool read.
         """
-        if state.layout == Layout.INTERWRAP and all(
+        if isinstance(state, PoolState) \
+                and state.layout == Layout.INTERWRAP and all(
                 p < state.boundary or p >= state.num_rows for p in phys):
             data, codes = migrate_ops.gather_encode(
                 state.storage,
@@ -79,7 +86,8 @@ class MigrationEngine:
         """Batch-write frames, reusing precomputed codes where they apply."""
         vm = self.vm
         state = vm.pools[pool_name]
-        if codes is not None and all(
+        # precomputed codes are SECDED: the DAEC tier re-encodes via write()
+        if codes is not None and isinstance(state, PoolState) and all(
                 state.boundary <= p < state.num_rows - state.daec_rows
                 for p in phys):
             _scatter_coded_rows(
@@ -137,6 +145,53 @@ class MigrationEngine:
                                data[idx], sub_codes)
         self.stats.pages_moved += len(victims)
         self.stats.bytes_moved += len(victims) * vm.page_bytes
+
+    # -- ad-hoc migration ----------------------------------------------------
+    def relocate(self, tenant: str, vpns, avoid_pool: str | None = None
+                 ) -> int:
+        """Move pages off their current frames (e.g. away from a weakening
+        pool, or up to a stronger class), preferring other pools; host swap
+        on overflow. Returns the number of device-resident pages moved."""
+        vm = self.vm
+        t0 = time.perf_counter()
+        space = vm.tenants[tenant]
+        victims = []
+        by_pool: dict[str, list[int]] = {}
+        for vpn in vpns:
+            pte = space.entries[vpn]
+            if pte.pool is None:
+                continue
+            victims.append((tenant, vpn, pte))
+            by_pool.setdefault(pte.pool, []).append(len(victims) - 1)
+        if not victims:
+            return 0
+        # one gather per source pool, scattered straight into victim order
+        n = len(victims)
+        data_all = torch.zeros((n, vm.page_words), dtype=torch.int32,
+                               device=vm.device)
+        codes_all = torch.zeros((n, vm.row_words), dtype=torch.int32,
+                                device=vm.device)
+        have_codes = True
+        for pool_name, idxs in by_pool.items():
+            phys = [victims[i][2].phys for i in idxs]
+            data, codes = self._read_frames(vm.pools[pool_name], phys)
+            idx = torch.as_tensor(idxs, device=vm.device)
+            data_all[idx] = data
+            if codes is None:
+                have_codes = False
+            else:
+                codes_all[idx] = codes
+        # free the source frames, but bar them (and the avoided pool) as
+        # destinations for this transaction: relocation must actually move
+        exclude: dict[str, set[int]] = {}
+        for _, _, pte in victims:
+            vm.allocators[pte.pool].release(vm.pools[pte.pool], pte.phys)
+            exclude.setdefault(pte.pool, set()).add(pte.phys)
+        self._place(data_all, codes_all if have_codes else None,
+                    victims, exclude, avoid_pool=avoid_pool)
+        self.stats.transactions += 1
+        self.stats.seconds += time.perf_counter() - t0
+        return n
 
     # -- the transaction -----------------------------------------------------
     def repartition_with_migration(self, pool_name: str, new_boundary: int

@@ -36,7 +36,11 @@ def test_importing_every_port_module_loads_no_jax():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
     assert {"repro_torch.serve.engine", "repro_torch.objcache.cache",
-            "repro_torch.vm.policy"} <= set(names)
+            "repro_torch.vm.policy", "repro_torch.core.daec",
+            "repro_torch.core.injection", "repro_torch.obs.slo",
+            "repro_torch.faults.shadow", "repro_torch.faults.campaign",
+            "repro_torch.faults.fit",
+            "repro_torch.kernels.daec.ops"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"

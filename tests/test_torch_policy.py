@@ -112,10 +112,24 @@ def test_scrub_rows_matches_pallas():
 
 
 def test_scrub_of_a_daec_tier_is_not_ported_yet():
+    """The DAEC tier is ported now: its sweep equals the reference's
+    (census and storage), a superbeat's verdict counting on both beats."""
+    rng = np.random.default_rng(5)
+    j = jp.make_pool(16, JLayout.INTERWRAP, boundary=8, row_words=W,
+                     daec_rows=4)
     t = tp.make_pool(16, Layout.INTERWRAP, boundary=8, row_words=W,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="daec"):
-        dataclasses.replace(t, daec_rows=8).scrub()
+                     daec_rows=4, device="cpu")
+    data = rng.integers(0, 2**32, (j.num_pages, 8 * W), dtype=np.uint32)
+    j = j.write(np.arange(j.num_pages), jnp.asarray(data))
+    t = t.write(np.arange(t.num_pages), common.to_words(data))
+    j, t = _flip(j, t, 13, 2, 9, 0b11 << 6)       # DAEC: adjacent double
+    j, t = _flip(j, t, 10, 4, 1, 0b11 << 6)       # SECDED: detected
+    (js, jstats), (ts, tstats) = j.scrub(), t.scrub()
+    np.testing.assert_array_equal(common.to_u32(ts.storage),
+                                  np.asarray(js.storage))
+    assert _stats(tstats) == _stats(jstats)
+    assert (tstats.corrected_data, tstats.detected_uncorrectable) == (2, 1)
+    assert tstats.corrupt_rows == (10,)
 
 
 # ---------------------------------------------------------------------------
@@ -280,15 +294,53 @@ def test_multitenant_monitor_driven_upgrade_and_quiet_downgrade():
 
 
 def test_campaign_methods_raise_until_their_slice():
-    vm = VirtualMemory(row_words=W, device="cpu")
-    policy = tpolicy.VMPolicy(vm)
-    for call in (lambda: policy.set_tenant_slo("t", "s", None),
-                 lambda: policy.observe_reads("t", "s", 1),
-                 lambda: policy.escalate_tenant("t", "s", Protection.DAEC),
-                 lambda: policy.ensure_daec_frames(1),
-                 policy.auto_escalate):
-        with pytest.raises(NotImplementedError, match="fault-campaign"):
-            call()
+    """The tenant-SLO methods are ported now: the same calls on twin VMs
+    give the reference's observed rates, escalations (NONE -> PARITY by the
+    SLO, then SECDED -> DAEC through a carved tier), placements and data."""
+    from repro.obs import slo as jslo
+    from repro_torch.obs import slo as tslo
+    jslo.TRACKER.reset()
+    tslo.TRACKER.reset()
+    twins = []
+    for vm, mod, prot, lay in (
+            (JVM(row_words=W), jpolicy, JProt, JLayout),
+            (VirtualMemory(row_words=W, device="cpu"), tpolicy, Protection,
+             Layout)):
+        vm.add_pool("p", 32, lay.INTERWRAP, boundary=16)
+        vm.create_tenant("t", segments={"s": prot.NONE})
+        policy = mod.VMPolicy(vm)
+        policy.set_tenant_slo("t", "s", mod.TenantSLO(
+            max_error_rate=0.01, min_reads=50, ceiling=prot.DAEC))
+        vpns = vm.alloc("t", 6, segment="s")
+        vm.write("t", vpns, np.arange(6 * vm.page_words, dtype=np.uint32)
+                 .reshape(6, -1))
+        policy.observe_reads("t", "s", 40, detected=1)
+        steps = [policy.observed_error_rate("t", "s"),
+                 policy.auto_escalate()]              # below min_reads
+        policy.observe_reads("t", "s", 40, silent=1)
+        steps.append(policy.auto_escalate())         # NONE -> PARITY
+        steps.append(policy.escalate_tenant("t", "s", prot.DAEC))
+        steps.append(policy.ensure_daec_frames(3))
+        pages = [(vm.translate("t", v).phys,
+                  vm.effective_protection("t", v).value) for v in vpns]
+        data = vm.read("t", vpns)
+        twins.append((steps, pages, vm.pools["p"].daec_rows,
+                      common.to_u32(data) if prot is Protection
+                      else np.asarray(data)))
+    (jsteps, jpages, jrows, jdata), (tsteps, tpages, trows, tdata) = twins
+    assert tsteps[0] == jsteps[0] == 1 / 40
+    assert tsteps[1] == jsteps[1] == []
+    norm = lambda e: {k: getattr(v, "value", v)  # noqa: E731
+                      for k, v in e.items()}
+    assert [norm(e) for e in tsteps[2]] == [norm(e) for e in jsteps[2]]
+    assert tsteps[2][0]["to"] == Protection.PARITY
+    assert norm(tsteps[3]) == norm(jsteps[3])
+    assert tsteps[4] == jsteps[4] >= 3
+    assert tpages == jpages and trows == jrows > 0
+    assert all(c == "daec" for _, c in tpages)
+    np.testing.assert_array_equal(tdata, jdata)
+    assert dataclasses.asdict(tslo.TRACKER.tenants["t/s"]) == \
+        dataclasses.asdict(jslo.TRACKER.tenants["t/s"])
     assert tpolicy.pool_protection(
         tp.make_pool(16, Layout.PARITY, boundary=8, row_words=W,
                      device="cpu")) == Protection.PARITY

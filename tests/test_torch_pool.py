@@ -217,15 +217,32 @@ def test_migrate_without_donation_keeps_input():
 
 
 def test_parity_side_channel_and_daec_tier_are_not_ported_yet():
-    """The PARITY side channel is ported (held against the reference in
-    ``tests/test_torch_parity.py``); the SEC-DAEC tier still raises."""
+    """Both are ported now: the PARITY side channel (held against the
+    reference in ``tests/test_torch_parity.py``) and the SEC-DAEC tier —
+    ``make_pool(daec_rows=...)`` and ``set_daec_rows`` on a PARITY pool
+    give the reference's storage (``tests/test_torch_daec.py`` has the
+    rest), and the boundary cannot move into the tier."""
     pool = tp.make_pool(ROWS, tl.Layout.PARITY, boundary=16, row_words=W,
                         device="cpu")
     assert pool.num_pages == ROWS + tl.extra_page_count(tl.Layout.PARITY, 16,
                                                          W)
     assert pool.move_boundary(8)[0].boundary == 8
-    with pytest.raises(NotImplementedError, match="daec"):
-        tp.make_pool(ROWS, tl.Layout.INTERWRAP, boundary=16, row_words=W,
+    j = jp.make_pool(ROWS, jl.Layout.PARITY, boundary=16, row_words=W,
+                     daec_rows=8)
+    t = tp.make_pool(ROWS, tl.Layout.PARITY, boundary=16, row_words=W,
                      daec_rows=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="daec"):
-        pool.set_daec_rows(8)
+    assert (t.daec_rows, t.daec_start) == (j.daec_rows, j.daec_start) \
+        == (8, 24)
+    data = np.random.default_rng(3).integers(0, 2**32, (t.num_pages, 8 * W),
+                                             dtype=np.uint32)
+    j = j.write(jnp.arange(j.num_pages), jnp.asarray(data))
+    t = t.write(np.arange(t.num_pages), common.to_words(data))
+    for n in (16, 0):
+        j, t = j.set_daec_rows(n), t.set_daec_rows(n)
+        assert t.daec_rows == n
+        np.testing.assert_array_equal(_np(t.storage).view(np.uint32),
+                                      np.asarray(j.storage))
+    np.testing.assert_array_equal(common.to_u32(t.read(np.arange(
+        t.num_pages))), data)
+    with pytest.raises(ValueError, match="overlap the DAEC tier"):
+        t.set_daec_rows(16).move_boundary(24)
