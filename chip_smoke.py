@@ -71,11 +71,36 @@ exits nonzero:
                   detected; then planted singles and adjacent doubles in
                   the tier are scrubbed, 2 beats per superbeat, as the
                   plain version on the CPU does on the same rows, and the
-                  payload reads back unchanged.
+                  payload reads back unchanged;
+ 16. prefill-long  qwen3-0.6b (full width and depth, float32) prefills one
+                  seeded 8192-token prompt through the flash-attention
+                  kernel (build_model(cfg, attn_impl="flash")) and through
+                  the plain einsum attention with the same weights: last-
+                  position logits within 1e-3 relative, exactly one flash
+                  launch per layer, then the same greedy token and 16 dense
+                  decode_step tokens on both paths; seconds, tokens/s and
+                  peak memory of each;
+ 17. seqcache     nine sessions, each a seeded 1024-token prompt prefilled
+                  through flash, packed (max_len 1088: ~250 MB, 3809 pages
+                  of 64 KiB) and parked in a SequenceCache whose pool has 8
+                  sessions' pages of rows, then three turns of resume_many,
+                  16 dense decode tokens each and park again; on an
+                  all-InterWrap pool (cream: 9 sessions fit, every resume a
+                  device hit, page traffic through the InterWrap kernels) and
+                  an all-SECDED one (secded: 8 fit, the cyclic turns thrash
+                  one through the host): tokens equal across modes and equal
+                  to an uninterrupted 48-token decode of each session.
+
+Phase 2 also holds the InterWrap gather / scatter bit-exact against their
+plain versions on every page id (extras included) of the serve pool and of
+a seqcache pool, and flash attention within 2e-5 of the output's scale at
+the prefill shape (and on a ragged S, in float32 and bfloat16); their
+bounds are bytes over 3.35 TB/s and, for flash attention, its flops over
+the card's float32 FMA rate (SMs x 128 x 2 x max SM clock).
 
 Then the card's name and power limit, one JSON line listing every kernel
-with its launches on the serve, cache and campaign phases and its phase-2
-numbers,
+with its launches on the serve, cache, campaign, prefill-long and seqcache
+phases and its phase-2 numbers,
 and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 float32 products are full float32.
@@ -100,6 +125,10 @@ MEM_BYTES_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 #: read from the card, and the ALU side of every bound uses it.
 INT_LANES_PER_SM = 64
 INT_OPS_S = None
+#: float32 FMA lanes an SM issues per clock on Hopper (128, 2 flops each);
+#: main() sets FP32_FLOPS_S = SMs x 128 x 2 x the SM's max clock
+FP32_LANES_PER_SM = 128
+FP32_FLOPS_S = None
 #: integer-pipe instructions per 128-bit superbeat of the DAEC kernels,
 #: counted by main() in the SASS of this build (see sass_loop_ops)
 DAEC_OPS: dict = {}
@@ -120,6 +149,10 @@ DAEC_PLANTS = 4            # singles and adjacent doubles of the final scrub
 #: benchmarks/cache_sim.py's fault-penalty model (µs per miss / per hit)
 FAULT_PENALTY_US, HIT_COST_US = 500.0, 0.1
 SLEEP_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of each timed call
+LONG_PROMPT = 8192         # prefill-long: one prompt, B = 1
+DECODE_NEW = 16            # dense decode tokens after a prefill / per turn
+SESSIONS, SESSION_PROMPT, TURNS = 9, 1024, 3
+SESSION_MAX_LEN = SESSION_PROMPT + TURNS * DECODE_NEW + 16      # 1088
 
 # kernel -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -143,6 +176,12 @@ KERNELS = {
                     "src/repro/kernels/daec/kernel.py:130"),
     "daec_decode": ("src/repro_torch/csrc/daec.cu",
                     "src/repro/kernels/daec/kernel.py:145"),
+    "interwrap_gather": ("src/repro_torch/csrc/interwrap.cu",
+                         "src/repro/kernels/interwrap/kernel.py:51"),
+    "interwrap_scatter": ("src/repro_torch/csrc/interwrap.cu",
+                          "src/repro/kernels/interwrap/kernel.py:76"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:67"),
 }
 
 
@@ -179,7 +218,8 @@ def median_ms(fn, reps: int) -> float:
 
 
 def int_rate(torch) -> dict:
-    """The card's int32 rate: SMs x INT_LANES_PER_SM x max SM clock."""
+    """The card's int32 rate, SMs x INT_LANES_PER_SM x max SM clock, and
+    its float32 FMA rate, SMs x FP32_LANES_PER_SM x 2 x max SM clock."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -187,7 +227,8 @@ def int_rate(torch) -> dict:
         timeout=60)
     mhz = float(smi.stdout.strip().splitlines()[0])
     return dict(sms=sms, max_sm_clock_mhz=mhz,
-                int_ops_s=sms * INT_LANES_PER_SM * mhz * 1e6)
+                int_ops_s=sms * INT_LANES_PER_SM * mhz * 1e6,
+                fp32_flops_s=sms * FP32_LANES_PER_SM * 2 * mhz * 1e6)
 
 
 SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
@@ -232,12 +273,21 @@ def sass_loop_ops(obj: Path) -> dict:
     return out
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str, float, float]:
-    """(bound ms, the side that binds, bytes side ms, operations side ms)."""
-    t_mem, t_ops = nbytes / MEM_BYTES_S, ops / INT_OPS_S
+def bound_ms(nbytes: int, ops: int, rate: float | None = None
+             ) -> tuple[float, str, float, float]:
+    """(bound ms, the side that binds, bytes side ms, operations side ms);
+    operations run at ``rate`` per second, the int32 rate by default."""
+    t_mem, t_ops = nbytes / MEM_BYTES_S, ops / (rate or INT_OPS_S)
     return (max(t_mem, t_ops) * 1e3,
             "bytes" if t_mem >= t_ops else "operations",
             t_mem * 1e3, t_ops * 1e3)
+
+
+def words_err(a, b) -> int:
+    """max_abs_err of two large word tensors, without int64 copies when
+    they are equal."""
+    import torch
+    return 0 if torch.equal(a, b) else max_abs_err(a, b)
 
 
 def max_abs_err(a, b) -> int:
@@ -691,6 +741,8 @@ def serve_phase(torch, np, mode: str, repartition: bool = False):
 def _kernel_class(name: str) -> str:
     low = name.lower()
     for key, cls in (("hash_lookup_read", "hash probe+gather"),
+                     ("interwrap", "interwrap gather/scatter"),
+                     ("flash_attention", "flash attention"),
                      ("parity8", "parity8 codec"),
                      ("scrub_rows", "scrub"),
                      ("mixed_read_correct", "mixed read"),
@@ -715,9 +767,6 @@ def phase_profile(torch, np, eng) -> dict:
     CREAM engine with every slot busy, timed on the host clock without the
     profiler, then again under ``torch.profiler`` for device kernel time by
     kernel and by class, and the device's busy share of the window."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeRequest
@@ -746,26 +795,38 @@ def phase_profile(torch, np, eng) -> dict:
         prof_ms = window()
     while eng.sched.has_work():
         eng.poll()
+    return dict(steps=PROFILE_STEPS, batch=B,
+                step_ms=plain_ms / PROFILE_STEPS,
+                profiled_step_ms=prof_ms / PROFILE_STEPS,
+                **device_breakdown(prof, prof_ms, PROFILE_STEPS))
+
+
+def device_breakdown(prof, window_ms: float, per: int = 1,
+                     top: int = 12) -> dict:
+    """Device time seen by ``prof``: by kernel class and by kernel (ms per
+    ``per`` steps), the device events and their busy share of a window of
+    ``window_ms``; "not measured" when the profiler saw no device time."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
     by_name: Counter = Counter()
+    events = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
-    out = dict(steps=PROFILE_STEPS, batch=B,
-               step_ms=plain_ms / PROFILE_STEPS,
-               profiled_step_ms=prof_ms / PROFILE_STEPS)
+            events += 1
     if not by_name:
-        return dict(out, device_time="not measured")
+        return dict(device_time="not measured")
     by_class: Counter = Counter()
     for name, us in by_name.items():
         by_class[_kernel_class(name)] += us
-    busy_us = sum(by_name.values())
-    return dict(out, device_busy_share=busy_us / (prof_ms * 1e3),
-                device_ms_per_step=busy_us / 1e3 / PROFILE_STEPS,
-                ms_per_step_by_class={k: v / 1e3 / PROFILE_STEPS
-                                      for k, v in by_class.most_common()},
-                top_kernels_ms_per_step=[
-                    (name[:96], us / 1e3 / PROFILE_STEPS)
-                    for name, us in by_name.most_common(12)])
+    busy = sum(by_name.values())
+    return dict(device_events=events, device_ms=busy / 1e3 / per,
+                device_busy_share=busy / (window_ms * 1e3),
+                ms_by_class={k: v / 1e3 / per
+                             for k, v in by_class.most_common()},
+                top_kernels_ms=[(name[:96], us / 1e3 / per)
+                                for name, us in by_name.most_common(top)])
 
 
 # ---------------------------------------------------------------------------
@@ -1096,9 +1157,6 @@ def phase_cache_profile(torch, np, cache) -> dict:
     """Where a full-batch get and set spend their time on the PARITY cache
     of cache-zipf: host clock without the profiler, then device kernel
     time by class under torch.profiler and the device's busy share."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     span = cache.max_value_words
     rng = np.random.default_rng(SEED + 5)
@@ -1122,28 +1180,9 @@ def phase_cache_profile(torch, np, cache) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             profiled = one(op)
-        by_name: Counter = Counter()
-        events = 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] += e.time_range.elapsed_us()
-                events += 1
-        r = dict(batch=GET_BATCH if op == "get" else SET_BATCH,
-                 host_ms=plain, profiled_ms=profiled, device_events=events)
-        if by_name:
-            by_class: Counter = Counter()
-            for name, us in by_name.items():
-                by_class[_kernel_class(name)] += us
-            busy = sum(by_name.values())
-            r.update(device_ms=busy / 1e3,
-                     device_busy_share=busy / (profiled * 1e3),
-                     ms_by_class={k: v / 1e3
-                                  for k, v in by_class.most_common()},
-                     top_kernels_ms=[(name[:96], us / 1e3) for name, us
-                                     in by_name.most_common(8)])
-        else:
-            r["device_time"] = "not measured"
-        out[op] = r
+        out[op] = dict(batch=GET_BATCH if op == "get" else SET_BATCH,
+                       host_ms=plain, profiled_ms=profiled,
+                       **device_breakdown(prof, profiled, top=8))
     return out
 
 
@@ -1373,6 +1412,325 @@ def phase_campaign_daec(torch, np) -> tuple[dict, dict]:
                 launches=launches), launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 2 (cont.): the InterWrap and flash-attention kernels
+# ---------------------------------------------------------------------------
+
+
+def session_pages(cfg) -> int:
+    """Pool pages of one packed seqcache session: K and V of every layer at
+    SESSION_MAX_LEN positions, float32, plus the int32 cache length."""
+    from repro_torch.models.transformer import num_attn_layers
+    nbytes = (num_attn_layers(cfg) * 2 * SESSION_MAX_LEN * cfg.num_kv_heads
+              * cfg.head_dim_ * 4 + 4)
+    return -(-nbytes // (4 * 8 * W))
+
+
+def phase_interwrap_kernels(torch, np, dev) -> dict:
+    """The InterWrap gather / scatter at the serve shape (one decode step's
+    B·L·maxB pages of the 1600-row CREAM pool) and at one seqcache session
+    (its pages of a pool of 8 sessions' rows): bit-exact against the plain
+    versions on every page id of each pool, extras included, then timed on
+    a batch of distinct ids as the path gives it."""
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core.layouts import LANES
+    from repro_torch.kernels.interwrap import ops, ref
+    from repro_torch.models.transformer import num_attn_layers
+    rng = np.random.default_rng(SEED + 14)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    words = lambda *shape: torch.randint(  # noqa: E731
+        -2**31, 2**31, shape, generator=gen, device=dev, dtype=torch.int32)
+    D = 8 * W
+    max_blocks = -(-MAX_LEN // (D // (2 * CONFIG.num_kv_heads
+                                      * CONFIG.head_dim_)))
+    pages = session_pages(CONFIG)
+    shapes = {"serve": (NUM_ROWS, B * num_attn_layers(CONFIG) * max_blocks),
+              "session": (8 * pages, pages)}
+    gat, sca = {}, {}
+    for name, (R, n) in shapes.items():
+        sto = words(R, LANES, W)
+        every = torch.as_tensor(rng.permutation(R + R // 8),
+                                dtype=torch.int32, device=dev)
+        err_g = words_err(ops.gather(sto, every, R),
+                          ref.gather(sto, every, R))
+        data = words(every.numel(), D)
+        got, want = sto.clone(), sto.clone()
+        ops.scatter(got, every, data, R)
+        ref.scatter(want, every, data, R)
+        torch.cuda.synchronize()
+        err_s = words_err(got, want)
+        del got, want, data
+        ids = every[:n].contiguous()
+        data = words(n, D)
+        rows, lanes = ref.wrap_coords(ids, R)
+        lib_g = lambda: sto[rows, lanes]  # noqa: E731  (yardstick only)
+        check(torch.equal(lib_g().reshape(n, D), ops.gather(sto, ids, R)),
+              "indexing yardstick differs")
+        lib_s = lambda: sto.index_put_(  # noqa: E731  (yardstick only)
+            (rows, lanes), data.view(n, 8, W))
+        nbytes = 4 * (2 * n * D + n)            # pages in, pages out, ids
+        gat[name] = dict(
+            rows=R, pages=n, max_abs_err=err_g, ids_checked=every.numel(),
+            ms=median_ms(lambda: ops.gather(sto, ids, R), 20),
+            plain_ms=median_ms(lambda: ref.gather(sto, ids, R), 3),
+            library_ms=median_ms(lib_g, 20), bound=bound_ms(nbytes, 0))
+        sca[name] = dict(
+            rows=R, pages=n, max_abs_err=err_s, ids_checked=every.numel(),
+            ms=median_ms(lambda: ops.scatter(sto, ids, data, R), 20),
+            plain_ms=median_ms(lambda: ref.scatter(sto, ids, data, R), 3),
+            library_ms=median_ms(lib_s, 20), bound=bound_ms(nbytes, 0))
+        del sto, every, ids, data, rows, lanes
+        torch.cuda.empty_cache()
+    out = {}
+    for kname, per_shape in (("interwrap_gather", gat),
+                             ("interwrap_scatter", sca)):
+        out[kname] = dict(per_shape["session"],
+                          max_abs_err=max(r["max_abs_err"]
+                                          for r in per_shape.values()),
+                          shapes=per_shape)
+        check(out[kname]["max_abs_err"] == 0,
+              f"{kname} disagrees with its plain version")
+    return out
+
+
+def phase_flash_kernel(torch, np, dev) -> dict:
+    """Flash attention at the prefill-long shape (B 1, Hq 16, Hkv 8, S 8192,
+    D 128, float32, causal) against its plain version: max abs error
+    within 2e-5 of the output's largest magnitude (the reference sweep's
+    float32 tolerance). Also a ragged S (1000) causal and not, in float32
+    (the same bound) and bfloat16 (|err| <= 2e-2 + 2e-2·|plain|, the
+    sweep's). Bound: flops of the causal pairs over the float32 FMA rate,
+    or each operand read once and the output written once."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    hq, hkv, d = CONFIG.num_heads, CONFIG.num_kv_heads, CONFIG.head_dim_
+
+    def operands(s: int, dtype):
+        return tuple(torch.randn((1, h, s, d), generator=gen, device=dev)
+                     .to(dtype) for h in (hq, hkv, hkv))
+
+    ragged = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = operands(1000, dtype)
+        for causal in (True, False):
+            got = ops.attention(q, k, v, causal=causal).float()
+            want = ref.attention(q, k, v, causal=causal).float()
+            err = (got - want).abs()
+            if dtype == torch.float32:
+                ok = float(err.max()) <= 2e-5 * float(want.abs().max())
+            else:
+                ok = bool((err <= 2e-2 + 2e-2 * want.abs()).all())
+            ragged[f"{str(dtype)[6:]}_{'causal' if causal else 'full'}"] = \
+                float(err.max())
+            check(ok, f"flash attention off at S=1000 {dtype} {causal}")
+    S = LONG_PROMPT
+    q, k, v = operands(S, torch.float32)
+    got = ops.attention(q, k, v)
+    want = ref.attention(q, k, v)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= 2e-5 * scale,
+          f"flash attention max abs error {err} at output scale {scale}")
+    del got, want
+    torch.cuda.empty_cache()
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731  (yardstick)
+        q, k, v, is_causal=True, enable_gqa=True)
+    flops = 4 * hq * d * S * (S + 1) // 2       # the causal (row, col) pairs
+    out = dict(
+        shape=dict(B=1, Hq=hq, Hkv=hkv, S=S, D=d, dtype="float32",
+                   causal=True),
+        max_abs_err=err, output_scale=scale, ragged_max_abs_err=ragged,
+        ms=median_ms(lambda: ops.attention(q, k, v), 20),
+        plain_ms=median_ms(lambda: ref.attention(q, k, v), 3),
+        library_ms=median_ms(lib, 20), flops=flops,
+        bound=bound_ms(4 * 2 * (hq + hkv) * S * d, flops, FP32_FLOPS_S))
+    out["tflops_s"] = flops / out["ms"] / 1e9
+    return {"flash_attention": out}
+
+
+# ---------------------------------------------------------------------------
+# Phases 16-17: long-context prefill, the SequenceCache tier
+# ---------------------------------------------------------------------------
+
+
+def greedy_decode(torch, model, state, tok, steps: int):
+    """``steps`` dense decode steps from ``tok`` (1,) int32 -> (the tokens,
+    the state after them)."""
+    out = []
+    for _ in range(steps):
+        logits, state = model.decode_step(state, tok)
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(int(tok))
+    return out, state
+
+
+def phase_prefill_long(torch, np, model) -> tuple[dict, dict]:
+    """One seeded LONG_PROMPT-token prompt through the flash prefill and
+    the plain einsum prefill of the same weights, then DECODE_NEW dense
+    decode tokens on each; after the flash path's, PROFILE_STEPS more under
+    torch.profiler (device time by class of a dense decode step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import common
+    from repro_torch.models.transformer import num_attn_layers
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 16)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, LONG_PROMPT)), device=DEVICE)
+    max_len = LONG_PROMPT + DECODE_NEW + PROFILE_STEPS
+    runs, logits, launches = {}, {}, {}
+    for impl in ("flash", "xla"):
+        model.attn_impl = impl
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.LAUNCHES.clear()                 # counts of the main path only
+        t0 = time.perf_counter()
+        logits[impl], state = model.prefill_state(prompt, max_len,
+                                                  logits_mode="last")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[impl] = dict(common.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        tok = logits[impl].argmax(-1).to(torch.int32)
+        t1 = time.perf_counter()
+        new, state = greedy_decode(torch, model, state, tok, DECODE_NEW)
+        torch.cuda.synchronize()
+        runs[impl] = dict(prefill_s=secs, prefill_tokens_per_s=LONG_PROMPT
+                          / secs, peak_gib=peak / 2**30,
+                          decode_ms_per_token=(time.perf_counter() - t1)
+                          * 1e3 / DECODE_NEW, tokens=[int(tok)] + new,
+                          launches=launches[impl])
+        if impl == "flash":
+            tok = torch.as_tensor([new[-1]], dtype=torch.int32,
+                                  device=DEVICE)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                greedy_decode(torch, model, state, tok, PROFILE_STEPS)
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - t1) * 1e3
+            runs[impl]["decode_profile"] = dict(
+                steps=PROFILE_STEPS, profiled_step_ms=prof_ms / PROFILE_STEPS,
+                **device_breakdown(prof, prof_ms, PROFILE_STEPS, top=8))
+        del state
+        torch.cuda.empty_cache()
+    model.attn_impl = "flash"
+    check(all(torch.isfinite(lg).all() for lg in logits.values()),
+          "non-finite prefill logits")
+    rel = float((logits["flash"] - logits["xla"]).abs().max()
+                / logits["xla"].abs().max())
+    check(rel <= 1e-3, f"flash and plain last logits differ by {rel} rel")
+    check(runs["flash"]["tokens"] == runs["xla"]["tokens"],
+          "flash and plain prefill decode different tokens")
+    layers = num_attn_layers(cfg)
+    check(launches["flash"].get("flash_attention", 0) == layers,
+          f"{launches['flash'].get('flash_attention')} flash launches for "
+          f"{layers} layers")
+    check(launches["xla"].get("flash_attention", 0) == 0,
+          "the plain prefill launched flash attention")
+    return dict(prompt=LONG_PROMPT, max_len=max_len,
+                last_logits_rel_err=rel, tokens_equal=True,
+                **runs), launches["flash"]
+
+
+def phase_seqcache(torch, np, model) -> tuple[dict, list]:
+    """SESSIONS flash prefills, packed and parked in a SequenceCache with
+    8 sessions' pages of rows, TURNS turns of resume_many, DECODE_NEW dense
+    decode tokens and park; on a cream (all-InterWrap) and a secded
+    (all-SECDED) pool, against an uninterrupted decode of each session."""
+    import dataclasses as dc
+
+    from repro_torch.kernels import common
+    from repro_torch.serve import SequenceCache, pack_tree, unpack_tree
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 17)
+    model.attn_impl = "flash"
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                     # counts of the main path only
+    t0 = time.perf_counter()
+    blobs, first, spec = {}, {}, None
+    for i in range(SESSIONS):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (1, SESSION_PROMPT)),
+                                 device=DEVICE)
+        logits, state = model.prefill_state(prompt, SESSION_MAX_LEN,
+                                            logits_mode="last")
+        first[f"q{i}"] = logits.argmax(-1).to(torch.int32)
+        blobs[f"q{i}"], spec = pack_tree(state)
+        del state
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = dict(common.LAUNCHES)
+    pages = session_pages(cfg)
+    check(all(-(-b.numel() // (32 * W)) == pages for b in blobs.values()),
+          "a session's pages differ from session_pages")
+    want = {sid: [int(first[sid])] + greedy_decode(
+        torch, model, unpack_tree(b, spec), first[sid], TURNS * DECODE_NEW)[0]
+        for sid, b in blobs.items()}
+    out = dict(sessions=SESSIONS, prompt=SESSION_PROMPT,
+               max_len=SESSION_MAX_LEN, blob_bytes=blobs["q0"].numel(),
+               pages_per_session=pages, rows=8 * pages, turns=TURNS,
+               prefill_s=prefill_s, prefill_launches=prefill_launches)
+    launches, tokens = [prefill_launches], {}
+    for mode in ("cream", "secded"):
+        cache = SequenceCache(8 * pages, mode, row_words=W, device=DEVICE)
+        torch.cuda.synchronize()
+        common.LAUNCHES.clear()                 # counts of the main path only
+        t0 = time.perf_counter()
+        last = dict(first)
+        got = {sid: [int(tok)] for sid, tok in first.items()}
+        clock = dict(park_s=0.0, decode_s=0.0)
+
+        def timed(key: str, fn, *args):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = fn(*args)
+            torch.cuda.synchronize()
+            clock[key] += time.perf_counter() - t1
+            return r
+        for sid, b in blobs.items():
+            timed("park_s", cache.park, sid, b)
+        for _ in range(TURNS):
+            back = cache.resume_many(list(blobs))
+            for sid in blobs:
+                new, state = timed("decode_s", greedy_decode, torch, model,
+                                   unpack_tree(back[sid], spec), last[sid],
+                                   DECODE_NEW)
+                got[sid] += new
+                last[sid] = torch.as_tensor([new[-1]], dtype=torch.int32,
+                                            device=DEVICE)
+                timed("park_s", cache.park, sid, pack_tree(state)[0])
+                del state
+            del back
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches.append(dict(common.LAUNCHES))
+        tokens[mode] = got
+        out[mode] = dict(device_pages=cache.device_capacity_pages,
+                         used_pages=cache.vm.used_device_pages(),
+                         **dc.asdict(cache.stats),
+                         fault_rate=cache.stats.fault_rate, seconds=wall,
+                         **clock, launches=launches[-1])
+        del cache
+        torch.cuda.empty_cache()
+    check(tokens["cream"] == tokens["secded"] == want,
+          "parked sessions decode other tokens than uninterrupted ones")
+    c, s = out["cream"], out["secded"]
+    check(c["device_pages"] > s["device_pages"],
+          "cream must offer more device pages")
+    check(c["host_hits"] == 0 and s["host_hits"] > 0,
+          f"host hits cream {c['host_hits']} secded {s['host_hits']}")
+    iw = ("interwrap_gather", "interwrap_scatter")
+    check(all(c["launches"].get(k, 0) > 0 for k in iw),
+          "the InterWrap kernels did not run on the cream pool")
+    check(not any(s["launches"].get(k, 0) for k in iw),
+          "the InterWrap kernels ran on the secded pool")
+    return dict(out, tokens_equal=True), launches
+
+
 def summary(stats: dict, launches: dict, wall: float) -> dict:
     keep = ("tokens", "tokens_per_s", "p50_latency_ms", "p99_latency_ms",
             "decode_steps", "device_pages", "preemptions", "restores",
@@ -1398,9 +1756,9 @@ def main() -> int:
     common.library()
     log = (common.BUILD_DIR / "build.log").read_text() \
         if (common.BUILD_DIR / "build.log").exists() else ""
-    global INT_OPS_S
+    global INT_OPS_S, FP32_FLOPS_S
     rate = int_rate(torch)
-    INT_OPS_S = rate["int_ops_s"]
+    INT_OPS_S, FP32_FLOPS_S = rate["int_ops_s"], rate["fp32_flops_s"]
     # one loop iteration handles one packed code word: two superbeats
     sass = {re.search(r"daec_(encode|decode)_kernel", name)[1]: r
             for name, r in sass_loop_ops(common.BUILD_DIR / "daec.o").items()}
@@ -1417,6 +1775,8 @@ def main() -> int:
 
     kern = phase_kernels(torch, np, dev)
     kern["kernels"].update(phase_cache_kernels(torch, np, dev))
+    kern["kernels"].update(phase_interwrap_kernels(torch, np, dev))
+    kern["kernels"].update(phase_flash_kernel(torch, np, dev))
     phase("kernels", kern)
     phase("reference", phase_reference(torch, np))
 
@@ -1473,8 +1833,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     camp, l_cd = phase_campaign_daec(torch, np)
     phase("campaign-daec", camp)
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(CONFIG, dtype="float32"),
+                        attn_impl="flash", seed=SEED, device=DEVICE)
+    long_ctx, l_pl = phase_prefill_long(torch, np, model)
+    phase("prefill-long", long_ctx)
+    seq, l_sq = phase_seqcache(torch, np, model)
+    phase("seqcache", seq)
+    del model
     main_paths = [l_c, l_s, l_r, *l_z.values(), *l_w.values(), l_d, l_a,
-                  l_cs, l_cd]
+                  l_cs, l_cd, l_pl, *l_sq]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

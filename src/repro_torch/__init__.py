@@ -15,7 +15,8 @@ What this package holds today:
   * :mod:`repro_torch.kernels` — hand-written CUDA kernels for Hopper
     (SECDED and SEC-DAEC encode/decode, the fused mixed-pool read, the
     migration gather/re-encode, parity8 encode/check, the fused hash probe
-    + gather, the scrub sweep), each beside its plain PyTorch version;
+    + gather, the scrub sweep, the InterWrap page gather/scatter, flash
+    attention), each beside its plain PyTorch version;
   * :mod:`repro_torch.vm`      — CREAM-VM tenants, frames, host swap,
     zero-loss repartition and relocation, the scrub → monitor → adapt
     policy and the tenant reliability SLOs;
@@ -24,12 +25,14 @@ What this package holds today:
   * :mod:`repro_torch.obs`     — the reliability / capacity SLO tracker;
   * :mod:`repro_torch.objcache` — CREAM-Cache, the key-value object cache
     on pool pages (the paper's memcached and WebSearch workloads);
-  * :mod:`repro_torch.models`  — the attention-only decoder for paged
-    serving;
-  * :mod:`repro_torch.serve`   — the CREAM-Serve continuous-batching engine.
+  * :mod:`repro_torch.models`  — the attention-only decoder: forward and
+    loss, flash-attention prefill, dense and paged decode;
+  * :mod:`repro_torch.serve`   — the CREAM-Serve continuous-batching engine
+    and the ``SequenceCache`` park/resume tier.
 
 Entry points (``Engine``, ``VirtualMemory``, ``make_pool``,
-``make_index``; ``ObjCache`` through its VM) run on
+``make_index``, ``build_model``, ``SequenceCache``; ``ObjCache`` through
+its VM) run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
 without ``device="cpu"`` they raise. Nothing here imports ``jax`` or
 :mod:`repro`.

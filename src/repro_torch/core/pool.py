@@ -13,7 +13,10 @@ The data plane is :meth:`PoolState.read` / :meth:`PoolState.write` /
 :meth:`PoolState.migrate`: one :func:`~repro_torch.core.layouts.page_coords`
 gather or scatter plus the batched SECDED codec
 (:mod:`repro_torch.kernels.secded` — the CUDA kernels for a pool on the
-card, the plain versions on the CPU).
+card, the plain versions on the CPU). A pool whose CREAM region covers
+every row under InterWrap (``boundary == R``) has no codes to keep, and
+its pages move through the InterWrap gather / scatter
+(:mod:`repro_torch.kernels.interwrap`) alone.
 
 ``daec_rows`` carves the top of the protected region into the SEC-DAEC
 tier: pages ``[R - daec_rows, R)`` keep :mod:`repro_torch.core.daec` code
@@ -51,6 +54,7 @@ from repro_torch.core.layouts import (CODE_LANE, DATA_LANES, DEFAULT_ROW_WORDS,
                                       parity_coords)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.daec import ops as daec_ops
+from repro_torch.kernels.interwrap import ops as interwrap_ops
 from repro_torch.kernels.parity8 import ops as parity8_ops
 from repro_torch.kernels.secded import ops as secded_ops
 
@@ -176,19 +180,69 @@ def make_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
 
 
 # ---------------------------------------------------------------------------
+# Batched access of single-mode pools (the paged KV cache's pools): the
+# whole pool CREAM under InterWrap, or the whole pool SECDED.
+# ---------------------------------------------------------------------------
+
+
+def _whole_interwrap(state: PoolState) -> bool:
+    """Every page is wrap-striped and none carries a code: the InterWrap
+    kernels' access (:mod:`repro_torch.kernels.interwrap`)."""
+    return state.layout == Layout.INTERWRAP \
+        and state.boundary == state.num_rows
+
+
+def _single_mode(state: PoolState) -> bool:
+    return state.boundary == 0 or _whole_interwrap(state)
+
+
+def read_pages_batch(state: PoolState, pages) -> torch.Tensor:
+    """Gather a batch of pages -> ``(n, page_words)`` int32.
+
+    Single-mode pools only: whole-pool InterWrap (the InterWrap gather) or
+    whole-pool SECDED (decode and correct on load). Mixed pools go through
+    :func:`read_pages_any`, which handles every boundary.
+    """
+    if not _single_mode(state):
+        raise ValueError("batched access requires a single-mode pool")
+    return read_pages_any(state, pages)
+
+
+def read_pages_batch_status(state: PoolState, pages
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched read + per-page worst decode status: ``(data (n,
+    page_words) int32, status (n,) int32)`` on both kinds of single-mode
+    pool, all zeros for the unprotected one."""
+    if not _single_mode(state):
+        raise ValueError("batched access requires a single-mode pool")
+    return read_pages_any_status(state, pages)
+
+
+def write_pages_batch(state: PoolState, pages, data) -> PoolState:
+    """Scatter a batch of pages ``(n, page_words)``. Single-mode pools
+    only; functional like :func:`write_pages_any`."""
+    if not _single_mode(state):
+        raise ValueError("batched access requires a single-mode pool")
+    return write_pages_any(state, pages, data)
+
+
+# ---------------------------------------------------------------------------
 # Mixed-pool batched access engine — any boundary, any page-id mix: one
 # page_coords translation, one advanced-indexing gather/scatter, and the
-# batched SECDED codec over the protected pages.
+# batched SECDED codec over the protected pages. A whole-pool InterWrap
+# pool takes the InterWrap kernels instead.
 # ---------------------------------------------------------------------------
 
 
 def _host_ids(state: PoolState, pages) -> np.ndarray:
-    """Page ids -> int64 numpy array, range-checked on the host (torch
-    indexing has no clamp-or-drop mode to hide a bad id)."""
+    """Page ids -> contiguous int64 numpy array, range-checked on the host
+    (torch indexing has no clamp-or-drop mode to hide a bad id). A strided
+    id vector (``ids[::3]``) is copied: the kernels take contiguous ids."""
     if isinstance(pages, torch.Tensor):
         arr = pages.detach().to("cpu", torch.int64).reshape(-1).numpy()
     else:
         arr = np.asarray(pages, dtype=np.int64).reshape(-1)
+    arr = np.ascontiguousarray(arr)
     bad = arr[(arr < 0) | (arr >= state.num_pages)]
     if bad.size:
         raise ValueError(
@@ -245,6 +299,9 @@ def read_pages_any_status(state: PoolState, pages
         return (torch.zeros((0, state.page_words), dtype=torch.int32,
                             device=state.device),
                 torch.zeros((0,), dtype=torch.int32, device=state.device))
+    if _whole_interwrap(state):
+        return (interwrap_ops.gather(state.storage, pages, state.num_rows),
+                torch.zeros((n,), dtype=torch.int32, device=state.device))
     rows, lanes, region = page_coords(state.layout, state.num_rows,
                                       state.boundary, pages, state.row_words)
     data = state.storage[rows, lanes, :].reshape(n, -1)
@@ -301,7 +358,8 @@ def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
 
     One data scatter over the ``page_coords`` translation, one SECDED code
     scatter for the protected pages and, on a PARITY pool, one packed-parity
-    scatter for the CREAM and extra pages. Rows masked out by ``valid`` (and
+    scatter for the CREAM and extra pages; a whole-pool InterWrap pool takes
+    the InterWrap scatter and nothing else. Rows masked out by ``valid`` (and
     the rows each codec does not cover) are removed before scattering — the
     reference routes them out of range and lets ``mode="drop"`` discard
     them. Of duplicate ids the last valid row lands (:func:`_landing_rows`).
@@ -316,6 +374,9 @@ def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
         ids = ids[land]
         data = data[torch.from_numpy(np.flatnonzero(land)).to(state.device)]
     pages = torch.from_numpy(ids).to(state.device)
+    if _whole_interwrap(state):         # distinct ids: _landing_rows
+        interwrap_ops.scatter(state.storage, pages, data, state.num_rows)
+        return state
     rows, lanes, _ = page_coords(state.layout, state.num_rows,
                                  state.boundary, pages, state.row_words)
     storage = state.storage

@@ -15,10 +15,11 @@ Ported (with their TPU originals in ``repro/kernels/``):
   hash      fused hash probe + mixed gather + correct  csrc/hash.cu
   scrub     SECDED scrub sweep of (R, 9, W) rows       csrc/scrub.cu
   daec      SEC-DAEC(144,128) encode / decode-correct  csrc/daec.cu
+  interwrap InterWrap page gather / in-place scatter   csrc/interwrap.cu
+  flash_attention  causal GQA online-softmax attention csrc/flash_attention.cu
 
 Shared device code: ``csrc/secded.cuh`` (Hsiao tables, in-register
 correct) and ``csrc/coords.cuh`` (page -> (row, lane) of one slice).
 
-Still to port (ROADMAP, queue 2): interwrap, flash_attention, ecc_matmul,
-mixed ``read_correct_routed``.
+Still to port (ROADMAP, queue 2): ecc_matmul, mixed ``read_correct_routed``.
 """

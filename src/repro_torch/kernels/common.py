@@ -109,13 +109,13 @@ LAUNCHES: collections.Counter = collections.Counter()
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("secded.cu", "mixed.cu", "migrate.cu", "parity8.cu", "hash.cu",
-           "scrub.cu", "daec.cu")
+           "scrub.cu", "daec.cu", "interwrap.cu", "flash_attention.cu")
 HEADERS = ("secded.cuh", "coords.cuh")
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry -> argument types; every entry returns cudaGetLastError().
 ENTRIES = {
     # data, codes, n_code_words, stream
@@ -140,6 +140,12 @@ ENTRIES = {
     "daec_encode": (_P, _P, _I, _P),
     # data, codes, out_data, out_codes, status, n_code_words, stream
     "daec_decode": (_P, _P, _P, _P, _P, _I, _P),
+    # storage, pages, out, n, W, num_rows, stream
+    "interwrap_gather": (_P, _P, _P, _I, _I, _I, _P),
+    # storage, pages, data, n, W, num_rows, stream
+    "interwrap_scatter": (_P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, out, B, Hq, Hkv, S, D, bf16, scale_log2, causal, stream
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 
@@ -209,7 +215,8 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call C entry ``name`` on torch's current stream; raise on a CUDA
-    error. Tensors pass as device pointers, ints as ``c_int``."""
+    error. Tensors pass as device pointers, numbers as ``ENTRIES`` types
+    them."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), name)(*conv, stream)

@@ -1,8 +1,12 @@
-"""GQA attention (RoPE, optional qk-norm): full-sequence and paged decode.
+"""GQA attention (RoPE, optional qk-norm): full-sequence, dense decode and
+paged decode.
 
-Port of ``repro/models/attention.py``. Both paths are plain einsum
-attention in float32 (the reference leaves them to XLA; the Pallas flash
-kernel is its optional ``impl="flash"`` and is not on the serving path).
+Port of ``repro/models/attention.py``. The full-sequence path is plain
+einsum attention in float32 by default (``impl="xla"``: the reference
+leaves it to XLA) or the flash-attention kernel (``impl="flash"``,
+:mod:`repro_torch.kernels.flash_attention`), which never holds the
+``(S, S)`` logits and serves long-context prefill. Both decode paths are
+einsum attention over one new token.
 """
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 
@@ -64,14 +69,76 @@ def _sdpa(q, k, v, causal: bool) -> torch.Tensor:
 
 def apply_attn(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor | None = None, causal: bool = True,
-               return_kv: bool = False):
-    """Full-sequence attention (prefill). x: (B, S, d_model)."""
+               impl: str = "xla", return_kv: bool = False):
+    """Full-sequence attention (prefill). x: (B, S, d_model).
+
+    ``impl="flash"`` runs the flash-attention kernel on ``(B, H, S, D)``
+    transposes of q, k and v; ``"xla"`` the einsum version.
+    """
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    y = _sdpa(q, k, v, causal).reshape(b, s, -1) @ p.wo
+    if impl == "flash":
+        out = fa.attention(q.transpose(1, 2).contiguous(),
+                           k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous(),
+                           causal=causal).transpose(1, 2)
+    elif impl == "xla":
+        out = _sdpa(q, k, v, causal)
+    else:
+        raise ValueError(f"attention impl {impl!r} is not 'xla' or 'flash'")
+    y = out.reshape(b, s, -1) @ p.wo
     return (y, (k, v)) if return_kv else y
+
+
+def _project_one(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                 pos: torch.Tensor):
+    """q (B, 1, Hq, D), k / v (B, 1, Hkv, D) of one token at ``pos`` (B,)."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q = (x @ p.wq).reshape(b, 1, hq, hd)
+    k_new = (x @ p.wk).reshape(b, 1, hkv, hd)
+    v_new = (x @ p.wv).reshape(b, 1, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k_new = rms_norm(k_new, p.k_norm, cfg.norm_eps)
+    return (apply_rope(q, pos[:, None], cfg.rope_theta),
+            apply_rope(k_new, pos[:, None], cfg.rope_theta), v_new)
+
+
+def apply_attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                      kv_cache: tuple[torch.Tensor, torch.Tensor],
+                      cache_len: torch.Tensor):
+    """One-token decode against a dense cache this layer owns.
+
+    x: (B, 1, d_model); cache k / v: (B, S_max, Hkv, D); ``cache_len`` (B,)
+    is where the new token goes. Returns ``(y, (k, v))`` with the new
+    token's K/V written at ``cache_len`` in place: the caller's cache is
+    updated, where the reference returns an updated copy. A sequence whose
+    ``cache_len`` has reached ``S_max`` writes nothing, as in the reference.
+    """
+    b = x.shape[0]
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    pos = cache_len                                    # (B,) current lengths
+    q, k_new, v_new = _project_one(p, cfg, x, pos)
+    ck, cv = kv_cache
+    rows = torch.arange(b, device=x.device)
+    at = pos.clamp(max=ck.shape[1] - 1)
+    fits = (pos < ck.shape[1])[:, None, None]
+    ck[rows, at] = torch.where(fits, k_new[:, 0].to(ck.dtype), ck[rows, at])
+    cv[rows, at] = torch.where(fits, v_new[:, 0].to(cv.dtype), cv[rows, at])
+
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    span = torch.arange(ck.shape[1], device=x.device)[None, :]
+    valid = span <= pos[:, None]                               # (B, S_max)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                          ck.float()) / (hd ** 0.5)
+    logits = torch.where(valid[:, None, None, :], logits, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, cv.float())
+    y = out.reshape(b, 1, hq * hd).to(x.dtype) @ p.wo
+    return y, (ck, cv)
 
 
 def apply_attn_decode_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -88,14 +155,7 @@ def apply_attn_decode_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     b = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     pos = cache_len                                    # (B,) current lengths
-    q = (x @ p.wq).reshape(b, 1, hq, hd)
-    k_new = (x @ p.wk).reshape(b, 1, hkv, hd)
-    v_new = (x @ p.wv).reshape(b, 1, hkv, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k_new = rms_norm(k_new, p.k_norm, cfg.norm_eps)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    q, k_new, v_new = _project_one(p, cfg, x, pos)
 
     ck, cv = kv
     smax = ck.shape[1]

@@ -96,3 +96,11 @@ class Embedding(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.table[tokens]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL in float32. logits (B, S, V); labels (B, S) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()

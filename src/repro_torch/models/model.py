@@ -13,9 +13,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import Transformer
 
 
-def build_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
-    """A decoder with weights drawn from ``seed`` on ``device``."""
-    return Transformer(cfg, seed=seed, device=device)
+def build_model(cfg: ModelConfig, attn_impl: str = "xla", seed: int = 0,
+                device=None) -> Transformer:
+    """A decoder with weights drawn from ``seed`` on ``device`` whose
+    prefill and forward attend with ``attn_impl`` (``"xla"`` or
+    ``"flash"``)."""
+    return Transformer(cfg, seed=seed, device=device, attn_impl=attn_impl)
 
 
 def _copy(dst: torch.Tensor, src) -> None:

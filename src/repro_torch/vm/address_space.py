@@ -248,6 +248,12 @@ class VirtualMemory:
             return None
         return frame_class(self.pools[pte.pool], pte.phys)
 
+    def residency(self, tenant: str, vpns) -> str:
+        """``"device"``, ``"host"`` or ``"mixed"``: where ``vpns`` live."""
+        tiers = {"host" if self.translate(tenant, v).pool is None
+                 else "device" for v in vpns}
+        return tiers.pop() if len(tiers) == 1 else "mixed"
+
     # -- allocation ----------------------------------------------------------
     def alloc(self, tenant: str, n: int, segment: str = "default",
               reliability: Protection | None = None,
@@ -387,3 +393,31 @@ class VirtualMemory:
             self.swap[slot] = data[j].copy()
             space.entries[vpn] = PTE(None, slot, pte.reliability, pte.segment)
         return len(device)
+
+    def swap_in(self, tenant: str, vpns) -> int:
+        """Promote host-resident pages back to device frames (best effort:
+        a page stays on the host when no frame of its class is free);
+        returns how many moved."""
+        space = self.tenants[tenant]
+        promoted = 0
+        for vpn in vpns:
+            pte = space.entries[vpn]
+            if pte.pool is not None:
+                continue
+            home = None
+            for pool_name, alloc in self.allocators.items():
+                picks = alloc.peek(pte.reliability, 1)
+                if picks:
+                    home = (pool_name, picks[0])
+                    break
+            if home is None:
+                continue
+            pool_name, phys = home
+            self.allocators[pool_name].claim(phys, tenant, vpn)
+            blob = self.swap.pop(pte.phys)
+            self.pools[pool_name] = self.pools[pool_name].write(
+                [phys], torch.from_numpy(blob.view(np.int32))[None, :])
+            space.entries[vpn] = PTE(pool_name, phys, pte.reliability,
+                                     pte.segment)
+            promoted += 1
+        return promoted

@@ -15,7 +15,8 @@ import repro_torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pool import make_pool
 from repro_torch.objcache.hash_index import make_index
-from repro_torch.serve import Engine
+from repro_torch.models import build_model
+from repro_torch.serve import Engine, SequenceCache
 from repro_torch.vm.address_space import VirtualMemory
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -40,7 +41,12 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.core.injection", "repro_torch.obs.slo",
             "repro_torch.faults.shadow", "repro_torch.faults.campaign",
             "repro_torch.faults.fit",
-            "repro_torch.kernels.daec.ops"} <= set(names)
+            "repro_torch.kernels.daec.ops",
+            "repro_torch.kernels.interwrap.ops",
+            "repro_torch.kernels.interwrap.ref",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref",
+            "repro_torch.serve.kv_cache"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -74,7 +80,10 @@ def test_forbidden_pattern_catches_what_it_must():
     lambda: VirtualMemory(row_words=64),
     lambda: make_pool(16, row_words=64),
     lambda: make_index(64),
-], ids=["Engine", "VirtualMemory", "make_pool", "make_index"])
+    lambda: build_model(CFG, attn_impl="flash"),
+    lambda: SequenceCache(16, row_words=64),
+], ids=["Engine", "VirtualMemory", "make_pool", "make_index", "build_model",
+        "SequenceCache"])
 def test_entry_points_without_cuda_raise(entry, monkeypatch):
     """No device and no CUDA: raise, never fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
