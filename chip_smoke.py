@@ -29,7 +29,12 @@ exits nonzero:
                   exactly one mixed-read launch per decode step;
   5. profile      where a full-batch decode step's time goes on the card:
                   host-clock step time, then device kernel time by class
-                  under torch.profiler, and the device's busy share;
+                  under torch.profiler, and the device's busy share; then
+                  two schedule_migration calls of 64 pages on this local
+                  pool, each beside one step, read back intact, the second
+                  traced: the side stream's busy time, the part of it
+                  concurrent with model-stream kernels, and the part
+                  inside the model stream's span;
   6. serve-secded the same requests on an all-SECDED pool sized so the
                   working set does not fit: identical tokens, fewer device
                   pages, preemptions, SECDED encode and decode launches, and
@@ -90,23 +95,49 @@ exits nonzero:
                   an all-SECDED one (secded: 8 fit, the cyclic turns thrash
                   one through the host): tokens equal across modes and equal
                   to an uninterrupted 48-token decode of each session.
+ 18. ecc-mlp      ecc_matmul's own path: one qwen3-0.6b SwiGLU MLP with
+                  SECDED-protected bf16 weights over a 4096-token prefill
+                  and the 4-token decode batch (6 launches), each product
+                  within 1e-5 of its scale against the plain version;
+ 19. shard-reference  one seeded sequence on a CREAM-Shard pool of 4 banks
+                  (64 global rows, W 64) on the card and on the CPU: writes
+                  with duplicate ids, routed and status reads, a 4-D
+                  injection, a migration across banks, repartition down and
+                  up, a carved DAEC tier and a scrub: identical storage,
+                  reads, statuses, censuses and evicted ids;
+ 20. serve-shard  the serve phases' requests on a pool added with shards=4
+                  (1600 global rows in 4 banks, InterWrap, boundary 1280,
+                  1760 pages): tokens equal to serve-cream's, each step's
+                  gather one mixed_read_correct_routed launch, and three
+                  times a schedule_migration of 64 pages across banks
+                  beside one step on a second stream, read back intact:
+                  a warm-up, one timed against the median step, one
+                  traced as in phase 5.
 
 Phase 2 also holds the InterWrap gather / scatter bit-exact against their
 plain versions on every page id (extras included) of the serve pool and of
 a seqcache pool, and flash attention within 2e-5 of the output's scale at
 the prefill shape (and on a ragged S, in float32 and bfloat16); their
 bounds are bytes over 3.35 TB/s and, for flash attention, its flops over
-the card's float32 FMA rate (SMs x 128 x 2 x max SM clock).
+the card's float32 FMA rate (SMs x 128 x 2 x max SM clock). It holds the
+router-fused mixed read bit-exact on every page id of the serve-shard
+pool and of a 16384-row pool in 8 banks, with planted flips; and
+ecc_matmul at qwen3-0.6b's MLP shapes over 4096 tokens and 4, and the
+reference sweep's, each with one flipped weight bit, within 1e-5 of scale
+and equal to the clean product, its bound the larger of bytes over 3.35
+TB/s and flops over the card's dense bf16 tensor rate (SMs x 4096 x max
+SM clock), torch.matmul of the clean A beside it.
 
 Then the card's name and power limit, one JSON line listing every kernel
-with its launches on the serve, cache, campaign, prefill-long and seqcache
-phases and its phase-2 numbers,
+with its launches on the serve, serve-shard, cache, campaign,
+prefill-long, seqcache and ecc-mlp phases and its phase-2 numbers,
 and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 float32 products are full float32.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -153,6 +184,19 @@ LONG_PROMPT = 8192         # prefill-long: one prompt, B = 1
 DECODE_NEW = 16            # dense decode tokens after a prefill / per turn
 SESSIONS, SESSION_PROMPT, TURNS = 9, 1024, 3
 SESSION_MAX_LEN = SESSION_PROMPT + TURNS * DECODE_NEW + 16      # 1088
+SHARDS, SHARD_BOUNDARY = 4, 1280       # serve-shard: 4 banks of 400 rows
+MIG_PAGES, MIG_AT_STEP = 64, 8         # a scheduled migration's pages
+ROUTED_ROWS, ROUTED_SHARDS = 16384, 8  # the routed read's large pool
+#: (M, K, N) of the ecc_matmul row: qwen3-0.6b's MLP weights over a
+#: 4096-token prefill (up / gate, down) and the decode batch, then the
+#: reference sweep's shapes (tests/test_kernels_sweep.py)
+ECC_SHAPES = ((3072, 1024, 4096), (1024, 3072, 4096), (3072, 1024, 4),
+              (64, 128, 64), (256, 512, 128))
+ECC_TOKENS = (4096, 4)                 # the ecc-mlp path's token batches
+#: dense bf16 tensor-core flops an SM does per clock on Hopper (NVIDIA's
+#: 989 TFLOP/s at 132 SMs and 1830 MHz); main() sets BF16_FLOPS_S
+BF16_FLOPS_PER_SM = 4096
+BF16_FLOPS_S = None
 
 # kernel -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -182,6 +226,10 @@ KERNELS = {
                           "src/repro/kernels/interwrap/kernel.py:76"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:67"),
+    "mixed_read_correct_routed": ("src/repro_torch/csrc/mixed.cu",
+                                  "src/repro/kernels/mixed/kernel.py:139"),
+    "ecc_matmul": ("src/repro_torch/csrc/ecc_matmul.cu",
+                   "src/repro/kernels/ecc_matmul/kernel.py:61"),
 }
 
 
@@ -218,8 +266,9 @@ def median_ms(fn, reps: int) -> float:
 
 
 def int_rate(torch) -> dict:
-    """The card's int32 rate, SMs x INT_LANES_PER_SM x max SM clock, and
-    its float32 FMA rate, SMs x FP32_LANES_PER_SM x 2 x max SM clock."""
+    """The card's int32 rate, SMs x INT_LANES_PER_SM x max SM clock, its
+    float32 FMA rate, SMs x FP32_LANES_PER_SM x 2 x max SM clock, and its
+    dense bf16 tensor rate, SMs x BF16_FLOPS_PER_SM x max SM clock."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -228,7 +277,8 @@ def int_rate(torch) -> dict:
     mhz = float(smi.stdout.strip().splitlines()[0])
     return dict(sms=sms, max_sm_clock_mhz=mhz,
                 int_ops_s=sms * INT_LANES_PER_SM * mhz * 1e6,
-                fp32_flops_s=sms * FP32_LANES_PER_SM * 2 * mhz * 1e6)
+                fp32_flops_s=sms * FP32_LANES_PER_SM * 2 * mhz * 1e6,
+                bf16_flops_s=sms * BF16_FLOPS_PER_SM * mhz * 1e6)
 
 
 SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
@@ -766,7 +816,10 @@ def phase_profile(torch, np, eng) -> dict:
     """Where a decode step's time goes: PROFILE_STEPS decode steps of the
     CREAM engine with every slot busy, timed on the host clock without the
     profiler, then again under ``torch.profiler`` for device kernel time by
-    kernel and by class, and the device's busy share of the window."""
+    kernel and by class, and the device's busy share of the window. Then
+    two schedule_migration calls of MIG_PAGES pages on this local pool,
+    each run beside one full-batch step and read back intact, the second
+    traced (stream_overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeRequest
@@ -775,7 +828,7 @@ def phase_profile(torch, np, eng) -> dict:
         eng.submit(ServeRequest(
             f"profile{i}",
             rng.integers(0, eng.cfg.vocab_size, PROMPT).astype(np.int32),
-            2 * PROFILE_STEPS + 4))
+            2 * PROFILE_STEPS + 8))
     for _ in range(2):
         eng.poll()
     check(len(eng.sched.active_slots()) == B, "profile batch is not full")
@@ -793,12 +846,34 @@ def phase_profile(torch, np, eng) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_ms = window()
+    # a scheduled migration on this local pool beside a full-batch step:
+    # one to warm the side stream up, one traced. The sessions parked by
+    # serve-cream hold the rest of the pool's frames: close them first.
+    for seq_id, sess in list(eng.sched.sessions.items()):
+        if sess.slot is None:
+            eng.sched.close_session(seq_id)
+    eng.vm.create_tenant("mig")
+    vpns = eng.vm.alloc("mig", 2 * MIG_PAGES, allow_host=False)
+    check(vpns is not None, "no frames for the migration")
+    phys = [eng.vm.translate("mig", v).phys for v in vpns]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    overlap = None
+    for profiled in (False, True):
+        check(len(eng.sched.active_slots()) == B, "migration batch not full")
+        moving = torch.randint(-2**31, 2**31, (MIG_PAGES, 8 * W),
+                               generator=gen, device=DEVICE,
+                               dtype=torch.int32)
+        _, overlap = migration_step(torch, np, eng, phys[:MIG_PAGES],
+                                    phys[MIG_PAGES:], vpns[:MIG_PAGES],
+                                    moving, profiled)
     while eng.sched.has_work():
         eng.poll()
     return dict(steps=PROFILE_STEPS, batch=B,
                 step_ms=plain_ms / PROFILE_STEPS,
                 profiled_step_ms=prof_ms / PROFILE_STEPS,
-                **device_breakdown(prof, prof_ms, PROFILE_STEPS))
+                **device_breakdown(prof, prof_ms, PROFILE_STEPS),
+                local_migration=dict(pages=MIG_PAGES, intact=True,
+                                     overlap=overlap))
 
 
 def device_breakdown(prof, window_ms: float, per: int = 1,
@@ -1731,6 +1806,430 @@ def phase_seqcache(torch, np, model) -> tuple[dict, list]:
     return dict(out, tokens_equal=True), launches
 
 
+# ---------------------------------------------------------------------------
+# CREAM-Shard and the SECDED decode-on-load matrix product
+# ---------------------------------------------------------------------------
+
+
+def sharded_words(torch, np, rng, gen, S: int, rows: int, boundary: int):
+    """(S, rows/S, 9, W) random words on the card whose SECDED rows (local
+    rows boundary/S and up of every bank) carry valid codes, with
+    plant_flips' single data-bit, code-bit and same-beat double flips."""
+    from repro_torch.core import secded
+    r_local, b_local = rows // S, boundary // S
+    sto = torch.randint(-2**31, 2**31, (S, r_local, 9, W), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    n_sec = r_local - b_local
+    data = sto[:, b_local:, :8].reshape(S * n_sec, 8 * W)
+    codes = secded.encode_block(data)
+    data, codes = plant_flips(data, codes, rng, n_each=max(1, S * n_sec // 8))
+    sto[:, b_local:, :8] = data.view(S, n_sec, 8, W)
+    sto[:, b_local:, 8] = codes.view(S, n_sec, W)
+    return sto
+
+
+def phase_routed_kernel(torch, np, dev) -> dict:
+    """The router-fused mixed read over all banks in one launch: at the
+    serve-shard pool (4 banks, 1600 rows, boundary 1280) on every page id,
+    and at 16384 rows in 8 banks (boundary 8192) on every page id, with
+    planted flips in the SECDED rows: bit-exact against the plain version.
+    Timed on the serve-shard pool; the yardstick is the uncorrected
+    advanced-indexing gather."""
+    from repro_torch.core.layouts import (REGION_SECDED, Layout, page_coords,
+                                          total_pages)
+    from repro_torch.kernels.mixed import ops, ref
+    from repro_torch.shard import router
+    rng = np.random.default_rng(SEED + 15)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    D = 8 * W
+    shapes = {}
+    for name, S, rows, boundary in (
+            ("serve_shard", SHARDS, NUM_ROWS, SHARD_BOUNDARY),
+            ("large", ROUTED_SHARDS, ROUTED_ROWS, ROUTED_ROWS // 2)):
+        sto = sharded_words(torch, np, rng, gen, S, rows, boundary)
+        b_local = boundary // S
+        n_pages = rows + S * (total_pages(Layout.INTERWRAP, b_local, W)
+                              - b_local)
+        ids = torch.as_tensor(rng.permutation(n_pages), dtype=torch.int32,
+                              device=dev)
+        args = (sto, ids, Layout.INTERWRAP, rows, boundary, S)
+        got = ops.read_correct_routed(*args)
+        err = words_err(got, ref.read_correct_routed(*args))
+        shard, local = router.route(ids, rows, S)
+        grow, lanes, region = page_coords(Layout.INTERWRAP, rows // S,
+                                          b_local, local, W)
+        grow = grow + (shard * (rows // S))[:, None]
+        flat = sto.view(-1, 9, W)
+        lib = lambda: flat[grow, lanes]  # noqa: E731  (yardstick only)
+        plain = region != REGION_SECDED
+        check(torch.equal(lib().reshape(-1, D)[plain], got[plain]),
+              "indexing yardstick differs")
+        n, n_sec = ids.numel(), int((~plain).sum())
+        torch.cuda.synchronize()
+        r = dict(banks=S, rows=rows, boundary=boundary, pages=n,
+                 secded_pages=n_sec, max_abs_err=err)
+        if name == "serve_shard":
+            # each input read once: every page, and its code slice if
+            # SECDED; every page written once; the ids
+            r.update(ms=median_ms(lambda: ops.read_correct_routed(*args), 20),
+                     plain_ms=median_ms(
+                         lambda: ref.read_correct_routed(*args), 3),
+                     library_ms=median_ms(lib, 20),
+                     bound=bound_ms(4 * (2 * n * D + n_sec * W + n),
+                                    48 * n_sec * D // 2))
+        else:
+            r.update(ms=median_ms(lambda: ops.read_correct_routed(*args), 5))
+        shapes[name] = r
+        del sto, ids, got, grow, lanes, region, flat
+        torch.cuda.empty_cache()
+    row = dict(shapes["serve_shard"], shapes=shapes,
+               max_abs_err=max(r["max_abs_err"] for r in shapes.values()))
+    check(row["max_abs_err"] == 0,
+          "mixed_read_correct_routed disagrees with its plain version")
+    return {"mixed_read_correct_routed": row}
+
+
+def phase_ecc_kernel(torch, np, dev) -> dict:
+    """The SECDED decode-on-load matrix product at ECC_SHAPES, one bit of
+    a protected A word flipped: within 1e-5 of the output's scale (its
+    largest magnitude) against the plain version (decode, then a float32
+    product), and equal to the kernel's product of the clean A. Bound: the
+    larger of its bytes over 3.35 TB/s and its flops over the card's dense
+    bf16 tensor rate; beside it torch.matmul of the clean bf16 A as a
+    comparison (a library product, not a port)."""
+    from repro_torch.kernels.ecc_matmul import ops, ref
+    rng = np.random.default_rng(SEED + 16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    shapes = {}
+    for m, k, n in ECC_SHAPES:
+        a = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+        b = torch.randn((k, n), generator=gen, device=dev).bfloat16()
+        bits, codes = ops.protect(a)
+        bad = bits.clone()
+        at = int(rng.integers(0, bad.numel()))
+        bad.view(-1)[at] ^= 1 << int(rng.integers(0, 31))
+        got = ops.ecc_matmul(bad, codes, b)
+        clean = ops.ecc_matmul(bits, codes, b)
+        want = ref.ecc_matmul(bad, codes, b)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= 1e-5 * scale,
+              f"ecc_matmul {m}x{k}x{n}: {err} off at scale {scale}")
+        check(torch.equal(got, clean),
+              f"ecc_matmul {m}x{k}x{n} did not correct the planted bit")
+        nbytes = 4 * (m * k // 2 + m * k // 16) + 2 * k * n + 4 * m * n
+        shapes[f"{m}x{k}x{n}"] = dict(
+            m=m, k=k, n=n, max_abs_err=err, scale=scale,
+            ms=median_ms(lambda: ops.ecc_matmul(bad, codes, b), 20),
+            plain_ms=median_ms(lambda: ref.ecc_matmul(bad, codes, b), 3),
+            library_ms=median_ms(lambda: torch.matmul(a, b), 20),
+            bound=bound_ms(nbytes, 2 * m * n * k, BF16_FLOPS_S))
+        del a, b, bits, codes, bad, got, clean, want
+    first = shapes["x".join(map(str, ECC_SHAPES[0]))]
+    return {"ecc_matmul": dict(first, shapes=shapes,
+                               max_abs_err=max(r["max_abs_err"]
+                                               for r in shapes.values()))}
+
+
+def phase_ecc_mlp(torch, np, dev) -> tuple[dict, dict]:
+    """ecc_matmul's own path: one qwen3-0.6b SwiGLU MLP (gate and up
+    1024 -> 3072, down 3072 -> 1024) with SECDED-protected bf16 weights,
+    applied feature-major to a 4096-token prefill and to the 4-token
+    decode batch, three ecc_matmul launches each; each product within 1e-5
+    of its scale against the plain version on the same inputs."""
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.kernels import common
+    from repro_torch.kernels.ecc_matmul import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    d, f = CONFIG.d_model, CONFIG.d_ff
+    weights = {name: ops.protect((torch.randn(shape, generator=gen,
+                                              device=dev)
+                                  / shape[1] ** 0.5).bfloat16())
+               for name, shape in (("gate", (f, d)), ("up", (f, d)),
+                                   ("down", (d, f)))}
+    xs = [torch.randn((d, t), generator=gen, device=dev).bfloat16()
+          for t in ECC_TOKENS]
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of this path only
+    t0 = time.perf_counter()
+    outs = []
+    for x in xs:
+        g = ops.ecc_matmul(*weights["gate"], x)
+        u = ops.ecc_matmul(*weights["up"], x)
+        h = (torch.nn.functional.silu(g) * u).bfloat16()
+        outs.append((x, g, u, h, ops.ecc_matmul(*weights["down"], h)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    errs = []
+    for x, g, u, h, y in outs:
+        for got, (name, inp) in ((g, ("gate", x)), (u, ("up", x)),
+                                 (y, ("down", h))):
+            want = ref.ecc_matmul(*weights[name], inp)
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= 1e-5 * scale,
+                  f"ecc-mlp {name}: {err} off at scale {scale}")
+            errs.append(err / scale)
+    check(launches.get("ecc_matmul", 0) == 3 * len(ECC_TOKENS),
+          f"ecc_matmul launches {launches}")
+    return dict(tokens=list(ECC_TOKENS), seconds=wall,
+                max_rel_err=max(errs), launches=launches), launches
+
+
+def shard_sequence(torch, np, device) -> dict:
+    """One seeded sequence of CREAM-Shard operations on a 4-bank pool of
+    64 global rows (W 64) on ``device``; returns what it saw as numpy."""
+    from repro_torch.core.injection import FaultModel
+    from repro_torch.core.layouts import Layout
+    from repro_torch.kernels.common import to_u32, to_words
+    from repro_torch.shard import make_sharded_pool
+    rng = np.random.default_rng(SEED + 18)
+    pool = make_sharded_pool(64, Layout.INTERWRAP, 32, num_shards=4,
+                             row_words=64, device=device)
+    seen = {}
+    n = pool.num_pages
+    ids = np.concatenate([rng.permutation(n), rng.integers(0, n, 11)])
+    data = rng.integers(0, 2**32, (ids.size, pool.page_words),
+                        dtype=np.uint32)
+    pool = pool.write(ids, to_words(data).to(device),
+                      valid=rng.random(ids.size) < 0.9)
+    every = rng.permutation(n)
+
+    def look(tag):
+        seen[f"{tag}/storage"] = to_u32(pool.storage)
+        live = every[every < pool.num_pages]
+        seen[f"{tag}/read"] = to_u32(pool.read(live))
+        d, st = pool.read(live, status=True)
+        seen[f"{tag}/read_status"] = to_u32(d)
+        seen[f"{tag}/status"] = st.cpu().numpy()
+
+    look("write")
+    model = FaultModel.make(SEED + 18, soft_rate=1e5, n_hard=2,
+                            shape=(64, 9, 64))
+    pool, flips = model.step_pool(pool)
+    seen["flips"] = np.asarray(flips)
+    look("inject")
+    pool = pool.migrate([1, 6, 64, 40, 3], [2, 8, 67, 45, 7])
+    look("migrate")
+    pool, info = pool.move_boundary(0)
+    seen["evicted_down"] = np.asarray(info["evicted_extra_pages"])
+    look("down")
+    pool, info = pool.move_boundary(32)
+    seen["evicted_up"] = np.asarray(info["evicted_extra_pages"])
+    look("up")
+    pool = pool.set_daec_rows(8)
+    look("daec")
+    pool, stats = pool.scrub()
+    seen["census"] = np.asarray([v if k != "corrupt_rows" else len(v)
+                                 for k, v in vars(stats).items()])
+    seen["corrupt_rows"] = np.asarray(stats.corrupt_rows)
+    look("scrub")
+    return seen
+
+
+def phase_shard_reference(torch, np) -> dict:
+    """shard_sequence on the card and on the CPU: identical storage, reads,
+    statuses, censuses and evicted ids at every stage."""
+    card = shard_sequence(torch, np, DEVICE)
+    cpu = shard_sequence(torch, np, "cpu")
+    check(card.keys() == cpu.keys(), "shard-reference stages differ")
+    for key in cpu:
+        check(np.array_equal(card[key], cpu[key]),
+              f"shard-reference: {key} differs between card and CPU")
+    return dict(stages=sorted({k.split("/")[0] for k in cpu if "/" in k}),
+                flips=int(cpu["flips"]),
+                statuses=sorted(set(cpu["inject/status"].tolist())),
+                census=cpu["census"].tolist(), identical=True)
+
+
+def _merged(spans) -> list:
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _meet_us(x: list, y: list) -> float:
+    """Length of the intersection of two merged span lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(x) and j < len(y):
+        total += max(0.0, min(x[i][1], y[j][1]) - max(x[i][0], y[j][0]))
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_overlap(prof, tag: str) -> dict:
+    """Device spans of a profiled migration step, by CUDA stream, read from
+    its trace (written under build/): the stream with the most kernels runs
+    the model step, every other one the migration. Returns the migration's
+    busy ms, the ms of it during which a model-stream kernel ran too, and
+    the share of it inside the model stream's first-to-last span; "not
+    measured" when the trace holds no second stream."""
+    from repro_torch.kernels import common
+    path = common.BUILD_DIR / f"migration_step_{tag}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    spans: dict = {}
+    for e in json.loads(path.read_text()).get("traceEvents", []):
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            stream = e.get("args", {}).get("stream", e.get("tid"))
+            spans.setdefault(stream, []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                 e["cat"] == "kernel"))
+    if len(spans) < 2:
+        return dict(overlap="not measured", streams=len(spans))
+    main = max(spans, key=lambda st: sum(k for *_, k in spans[st]))
+    model = _merged([(a, b) for a, b, _ in spans[main]])
+    side_ev = [sp for st, v in spans.items() if st != main for sp in v]
+    side = _merged([(a, b) for a, b, _ in side_ev])
+    side_us = sum(b - a for a, b in side)
+    window = [[model[0][0], model[-1][1]]]
+    return dict(streams=len(spans), model_events=len(spans[main]),
+                migration_events=len(side_ev),
+                migration_kernels=sum(k for *_, k in side_ev),
+                model_busy_ms=sum(b - a for a, b in model) / 1e3,
+                model_span_ms=(window[0][1] - window[0][0]) / 1e3,
+                migration_busy_ms=side_us / 1e3,
+                concurrent_ms=_meet_us(side, model) / 1e3,
+                concurrent_share=_meet_us(side, model) / side_us,
+                inside_step_share=_meet_us(side, window) / side_us)
+
+
+def migration_step(torch, np, eng, src, dst, vpns, moving,
+                   profiled: bool) -> tuple[list, dict | None]:
+    """Write ``moving`` into tenant "mig"'s pages ``vpns`` (at ``src``),
+    queue ``src -> dst`` with schedule_migration and poll until a decode
+    step has run it (under torch.profiler when ``profiled``); ``dst`` must
+    then read ``moving`` back. The read-back's launches are not counted.
+    Returns the finished requests and the step's stream overlap."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import common
+    eng.vm.write("mig", vpns, moving)
+    eng.schedule_migration(src, dst)
+    done = []
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if profiled else contextlib.nullcontext()) as prof:
+        while eng._pending_migration is not None:
+            check(eng.sched.has_work(), "no decode step left to migrate in")
+            done.extend(eng.poll())
+        torch.cuda.synchronize()
+    counts = dict(common.LAUNCHES)
+    check(torch.equal(eng.pool.read(dst), moving),
+          "migrated pages do not read back intact")
+    common.LAUNCHES.clear()
+    common.LAUNCHES.update(counts)
+    return done, prof and stream_overlap(prof, type(eng.pool).__name__)
+
+
+def phase_serve_shard(torch, np, tok_c) -> tuple[dict, dict]:
+    """The serve phases' requests on a pool added with shards=SHARDS: 1600
+    global rows in 4 banks, InterWrap, boundary 1280 (1760 pages). Every
+    step's gather is one mixed_read_correct_routed launch; at decode steps
+    MIG_AT_STEP, twice and three times that, a schedule_migration of
+    MIG_PAGES pages held by a tenant of their own (no decode sequence's),
+    each to another bank, runs on a second stream beside that step's
+    model compute and reads back unchanged (fresh contents each time). The
+    first warms the stream up, the second is timed, the third traced
+    (stream_overlap)."""
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core.layouts import Layout
+    from repro_torch.kernels import common
+    from repro_torch.serve import Engine
+    from repro_torch.shard import ShardedPool, route_np
+    from repro_torch.vm import VirtualMemory
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    vm = VirtualMemory(row_words=W, device=DEVICE)
+    pool = vm.add_pool("kv", NUM_ROWS, Layout.INTERWRAP,
+                       boundary=SHARD_BOUNDARY, shards=SHARDS)
+    check(isinstance(pool, ShardedPool), "no sharded pool")
+    eng = Engine(cfg, max_batch=B, max_len=MAX_LEN, vm=vm, pool="kv",
+                 seed=SEED)
+    vm.create_tenant("mig")
+    vpns = vm.alloc("mig", 2 * MIG_PAGES, allow_host=False)
+    check(vpns is not None, "no frames for the migration")
+    phys = [vm.translate("mig", v).phys for v in vpns]
+    src = phys[:MIG_PAGES]
+    dst = phys[MIG_PAGES + 1:] + phys[MIG_PAGES:MIG_PAGES + 1]
+    check((route_np(src, NUM_ROWS, SHARDS)[0]
+           != route_np(dst, NUM_ROWS, SHARDS)[0]).all(),
+          "a migrated page stays in its bank")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    plan = [(k * MIG_AT_STEP, torch.randint(-2**31, 2**31, (MIG_PAGES, 8 * W),
+                                            generator=gen, device=DEVICE,
+                                            dtype=torch.int32), k == 3)
+            for k in (1, 2, 3)]
+    reqs = requests(np, cfg.vocab_size)
+    for r in reqs:
+        eng.submit(r)
+    gathers, step_s = [], []
+    gather, step = eng._gather_pages, eng.step
+
+    def counted_gather(phys_ids):
+        before = dict(common.LAUNCHES)
+        out = gather(phys_ids)
+        gathers.append(tuple(common.LAUNCHES.get(k, 0) - before.get(k, 0)
+                             for k in ("mixed_read_correct_routed",
+                                       "mixed_read_correct")))
+        return out
+
+    def timed_step():
+        t = time.perf_counter()
+        out = step()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    eng._gather_pages, eng.step = counted_gather, timed_step
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    t0 = time.perf_counter()
+    done, mig_steps, overlap = [], [], None
+    while eng.sched.has_work():
+        if plan and eng.steps >= plan[0][0]:
+            _, moving, profiled = plan.pop(0)
+            mig_steps.append(eng.steps)
+            finished, traced = migration_step(torch, np, eng, src, dst,
+                                              vpns[:MIG_PAGES], moving,
+                                              profiled)
+            done.extend(finished)
+            overlap = traced or overlap
+        else:
+            done.extend(eng.poll())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    tokens = [r.generated for r in reqs]
+    check(len(done) == len(reqs), "requests unfinished")
+    check(tokens == tok_c, "serve-shard tokens differ from serve-cream's")
+    check(len(gathers) == eng.steps and set(gathers) == {(1, 0)},
+          f"gathers per step: {sorted(set(gathers))} over {len(gathers)}")
+    check(not plan and len(mig_steps) == 3, f"migrations run: {mig_steps}")
+    n_tok = sum(len(t) for t in tokens)
+    plain = [t for i, t in enumerate(step_s) if i not in mig_steps]
+    return dict(rows=NUM_ROWS, banks=SHARDS, boundary=SHARD_BOUNDARY,
+                device_pages=pool.num_pages, tokens=n_tok,
+                tokens_per_s=n_tok / wall, wall_s=wall,
+                decode_steps=eng.steps,
+                step_ms_median=statistics.median(plain) * 1e3,
+                migration_steps=mig_steps,
+                migration_step_ms=[step_s[i] * 1e3 for i in mig_steps],
+                migration_overlap=overlap,
+                migrated_pages=MIG_PAGES, migrated_intact=True,
+                tokens_equal=True,
+                preemptions=eng.sched.stats.get("preemptions"),
+                launches=launches), launches
+
+
 def summary(stats: dict, launches: dict, wall: float) -> dict:
     keep = ("tokens", "tokens_per_s", "p50_latency_ms", "p99_latency_ms",
             "decode_steps", "device_pages", "preemptions", "restores",
@@ -1756,9 +2255,10 @@ def main() -> int:
     common.library()
     log = (common.BUILD_DIR / "build.log").read_text() \
         if (common.BUILD_DIR / "build.log").exists() else ""
-    global INT_OPS_S, FP32_FLOPS_S
+    global INT_OPS_S, FP32_FLOPS_S, BF16_FLOPS_S
     rate = int_rate(torch)
     INT_OPS_S, FP32_FLOPS_S = rate["int_ops_s"], rate["fp32_flops_s"]
+    BF16_FLOPS_S = rate["bf16_flops_s"]
     # one loop iteration handles one packed code word: two superbeats
     sass = {re.search(r"daec_(encode|decode)_kernel", name)[1]: r
             for name, r in sass_loop_ops(common.BUILD_DIR / "daec.o").items()}
@@ -1777,7 +2277,11 @@ def main() -> int:
     kern["kernels"].update(phase_cache_kernels(torch, np, dev))
     kern["kernels"].update(phase_interwrap_kernels(torch, np, dev))
     kern["kernels"].update(phase_flash_kernel(torch, np, dev))
+    kern["kernels"].update(phase_routed_kernel(torch, np, dev))
+    kern["kernels"].update(phase_ecc_kernel(torch, np, dev))
     phase("kernels", kern)
+    ecc_mlp, l_em = phase_ecc_mlp(torch, np, dev)
+    phase("ecc-mlp", ecc_mlp)
     phase("reference", phase_reference(torch, np))
 
     eng, tok_c, st_c, l_c, _, wall_c = serve_phase(torch, np, "cream")
@@ -1814,6 +2318,11 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
+    phase("shard-reference", phase_shard_reference(torch, np))
+    shard, l_ss = phase_serve_shard(torch, np, tok_c)
+    phase("serve-shard", shard)
+    torch.cuda.empty_cache()
+
     phase("cache-reference", phase_cache_reference(torch, np))
     zipf, l_z, pcache = phase_cache_replay(torch, np, "zipf")
     phase("cache-zipf", dict(rows=CACHE_ROWS, row_words=W,
@@ -1844,8 +2353,8 @@ def main() -> int:
     seq, l_sq = phase_seqcache(torch, np, model)
     phase("seqcache", seq)
     del model
-    main_paths = [l_c, l_s, l_r, *l_z.values(), *l_w.values(), l_d, l_a,
-                  l_cs, l_cd, l_pl, *l_sq]
+    main_paths = [l_c, l_s, l_r, l_ss, *l_z.values(), *l_w.values(), l_d,
+                  l_a, l_cs, l_cd, l_pl, *l_sq, l_em]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -16,7 +16,10 @@ What this package holds today:
     (SECDED and SEC-DAEC encode/decode, the fused mixed-pool read, the
     migration gather/re-encode, parity8 encode/check, the fused hash probe
     + gather, the scrub sweep, the InterWrap page gather/scatter, flash
-    attention), each beside its plain PyTorch version;
+    attention, the router-fused sharded read, the SECDED decode-on-load
+    matrix product), each beside its plain PyTorch version;
+  * :mod:`repro_torch.shard`   — CREAM-Shard: the pool in rank-subset
+    banks on one card, with the router and lockstep repartitioning;
   * :mod:`repro_torch.vm`      — CREAM-VM tenants, frames, host swap,
     zero-loss repartition and relocation, the scrub → monitor → adapt
     policy and the tenant reliability SLOs;
@@ -31,8 +34,8 @@ What this package holds today:
     and the ``SequenceCache`` park/resume tier.
 
 Entry points (``Engine``, ``VirtualMemory``, ``make_pool``,
-``make_index``, ``build_model``, ``SequenceCache``; ``ObjCache`` through
-its VM) run on
+``make_sharded_pool``, ``make_index``, ``build_model``, ``SequenceCache``;
+``ObjCache`` through its VM) run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
 without ``device="cpu"`` they raise. Nothing here imports ``jax`` or
 :mod:`repro`.

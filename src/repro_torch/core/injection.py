@@ -22,7 +22,10 @@ duplicate indices, so duplicates must never reach it). Hard cells are
 OR-ed after the XOR, as in the reference. The functions return new
 storage and leave their input as it was, like the reference.
 
-Sharded (4-D) storage belongs to CREAM-Shard and raises.
+:meth:`FaultModel.step_pool` also steps a CREAM-Shard pool's ``(S,
+R_local, 9, W)`` storage: global row ``r`` is bank ``r % S``, local row
+``r // S`` (the router's convention), drawn over the global ``(S *
+R_local, 9, W)`` shape as the reference draws it.
 """
 from __future__ import annotations
 
@@ -31,10 +34,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-
-_SHARD_TODO = ("sharded pools belong to the CREAM-Shard slice (ROADMAP, "
-               "queue 1: CREAM-Shard)")
-
 
 @dataclass(frozen=True)
 class FlipRecord:
@@ -51,10 +50,9 @@ def _one(bits: np.ndarray) -> np.ndarray:
 
 
 def _check_local(storage: torch.Tensor) -> None:
-    if storage.dim() == 4:
-        raise NotImplementedError(_SHARD_TODO)
     if storage.dim() != 3:
-        raise ValueError(f"unsupported storage rank {storage.dim()}")
+        raise ValueError(f"expected (R, 9, W) storage, got rank "
+                         f"{storage.dim()} (sharded pools: step_pool)")
 
 
 def _fold(words: np.ndarray, masks: np.ndarray, reduce
@@ -226,22 +224,39 @@ class FaultModel:
     def step(self, storage: torch.Tensor) -> tuple[torch.Tensor, int]:
         """Apply one step of faults -> ``(storage', flips applied)``."""
         _check_local(storage)
+        return self._step(storage, lambda r: r)
+
+    def _step(self, storage: torch.Tensor, phys
+              ) -> tuple[torch.Tensor, int]:
+        """One step over ``storage`` viewed as ``(rows, L, W)``; ``phys``
+        maps the drawn (global) row ids to rows of that view."""
         out = storage.clone()
-        R, L, W = out.shape
+        flat = out.view(-1, *out.shape[-2:])
+        R, L, W = flat.shape
         rows, lns, words, bits = self._draw_soft(
             R, L, W, out.numel() * out.element_size())
-        _xor_cells(out, rows, lns, words, bits)
+        _xor_cells(flat, phys(rows), lns, words, bits)
         count = int(rows.size)
         if self.hard_cells:                  # stuck-at-1, after the XOR
-            lin = np.asarray([(c.row * L + c.lane) * W + c.word
-                              for c in self.hard_cells], np.int64)
-            _land(out, *_fold(lin, _one(np.asarray(
+            hrows = phys(np.asarray([c.row for c in self.hard_cells],
+                                    np.int64))
+            lin = (hrows * L + [c.lane for c in self.hard_cells]) * W \
+                + [c.word for c in self.hard_cells]
+            _land(flat, *_fold(lin, _one(np.asarray(
                 [c.bit for c in self.hard_cells])), np.bitwise_or), "or")
             count += len(self.hard_cells)
         return out, count
 
     def step_pool(self, pool) -> tuple[object, int]:
-        """Inject one step of faults into a live local pool -> ``(pool',
-        flips applied)``. Sharded pools raise (CREAM-Shard)."""
-        storage, count = self.step(pool.storage)
-        return dataclasses.replace(pool, storage=storage), count
+        """Inject one step of faults into a live pool -> ``(pool', flips
+        applied)``: a local pool's ``(R, 9, W)`` storage, or a sharded
+        pool's ``(S, R_local, 9, W)`` with global row ``r`` at bank ``r %
+        S``, local row ``r // S``."""
+        storage = pool.storage
+        if storage.dim() == 4:
+            S, R_local = storage.shape[:2]
+            new, count = self._step(storage,
+                                    lambda r: r % S * R_local + r // S)
+        else:
+            new, count = self.step(storage)
+        return dataclasses.replace(pool, storage=new), count

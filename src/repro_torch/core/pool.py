@@ -52,7 +52,7 @@ from repro_torch.core.layouts import (CODE_LANE, DATA_LANES, DEFAULT_ROW_WORDS,
                                       GROUP_ROWS, LANES, REGION_SECDED, Layout,
                                       extra_page_count, page_coords,
                                       parity_coords)
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import resolve_device, upload
 from repro_torch.kernels.daec import ops as daec_ops
 from repro_torch.kernels.interwrap import ops as interwrap_ops
 from repro_torch.kernels.parity8 import ops as parity8_ops
@@ -293,7 +293,7 @@ def read_pages_any_status(state: PoolState, pages
     gives the same bits).
     """
     ids = _host_ids(state, pages)
-    pages = torch.from_numpy(ids).to(state.device)
+    pages = upload(ids, state.device)
     n = pages.shape[0]
     if n == 0:
         return (torch.zeros((0, state.page_words), dtype=torch.int32,
@@ -333,7 +333,7 @@ def _daec_rows_of(state: PoolState, ids: np.ndarray) -> torch.Tensor | None:
     if not state.daec_rows:
         return None
     sel = np.flatnonzero((ids >= state.daec_start) & (ids < state.num_rows))
-    return torch.from_numpy(sel).to(state.device) if sel.size else None
+    return upload(sel, state.device) if sel.size else None
 
 
 def _parity_index(state: PoolState, pages: torch.Tensor) -> tuple:
@@ -372,8 +372,8 @@ def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
     land = _landing_rows(ids, valid)
     if not land.all():
         ids = ids[land]
-        data = data[torch.from_numpy(np.flatnonzero(land)).to(state.device)]
-    pages = torch.from_numpy(ids).to(state.device)
+        data = data[upload(np.flatnonzero(land), state.device)]
+    pages = upload(ids, state.device)
     if _whole_interwrap(state):         # distinct ids: _landing_rows
         interwrap_ops.scatter(state.storage, pages, data, state.num_rows)
         return state
@@ -386,10 +386,10 @@ def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
     for mask, codec in ((is_sec & ~is_daec, secded_ops),
                         (is_daec, daec_ops)):
         if mask.any():
-            sel = torch.from_numpy(np.flatnonzero(mask)).to(state.device)
+            sel = upload(np.flatnonzero(mask), state.device)
             storage[pages[sel], CODE_LANE, :] = codec.encode(data[sel])
     if state.has_parity and not is_sec.all():
-        sel = torch.from_numpy(np.flatnonzero(~is_sec)).to(state.device)
+        sel = upload(np.flatnonzero(~is_sec), state.device)
         storage[_parity_index(state, pages[sel])] = parity8_ops.encode(
             data[sel])
     return state

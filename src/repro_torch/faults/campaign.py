@@ -75,7 +75,8 @@ class FaultCampaign:
         self.model = FaultModel.make(
             seed,
             soft_rate=soft_rate_per_gb_per_step(fit_per_mbit, hours_per_step),
-            n_hard=n_hard, shape=tuple(inner.storage.shape), mix=mix)
+            n_hard=n_hard, shape=(inner.num_rows, *inner.storage.shape[-2:]),
+            mix=mix)
         self.fit_per_mbit = fit_per_mbit
         self.hours_per_step = hours_per_step
         self.steps = 0

@@ -68,8 +68,9 @@ class ShadowedPool:
 
     def __init__(self, inner):
         self.inner = inner
-        cap = inner.num_rows + extra_page_count(
-            inner.layout, inner.num_rows, inner.row_words)
+        S = getattr(inner, "num_shards", 1)   # a sharded pool's extras
+        cap = inner.num_rows + S * extra_page_count(    # stripe its banks
+            inner.layout, inner.num_rows // S, inner.row_words)
         self._shadow = torch.zeros((cap, inner.page_words), dtype=torch.int32,
                                    device=inner.device)
         self._valid = np.zeros(cap, bool)

@@ -58,9 +58,21 @@ def to_words(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.uint32).view(np.int32))
 
 
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """Host array -> tensor on ``device``. To the card the array is staged
+    in pinned memory and copied without blocking the host: a copy from
+    pageable memory would first wait for every launch queued on the
+    stream, and so hold the host back from queuing anything else."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def to_u32(t: torch.Tensor) -> np.ndarray:
-    """int32 tensor -> numpy uint32 array of the same bits (host copy)."""
-    return t.detach().cpu().numpy().view(np.uint32)
+    """int32 tensor -> numpy uint32 array of the same bits: a host copy,
+    also of a CPU tensor (``.cpu()`` alone would share its memory)."""
+    return t.detach().to("cpu", copy=True).numpy().view(np.uint32)
 
 
 def lsr(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -109,7 +121,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("secded.cu", "mixed.cu", "migrate.cu", "parity8.cu", "hash.cu",
-           "scrub.cu", "daec.cu", "interwrap.cu", "flash_attention.cu")
+           "scrub.cu", "daec.cu", "interwrap.cu", "flash_attention.cu",
+           "ecc_matmul.cu")
 HEADERS = ("secded.cuh", "coords.cuh")
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -124,6 +137,9 @@ ENTRIES = {
     "secded_decode": (_P, _P, _P, _P, _P, _I, _P),
     # storage, pages, out, n, W, interwrap, num_rows, boundary, ebase, stream
     "mixed_read_correct": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # storage, pages, out, n, W, interwrap, num_rows, num_shards,
+    # boundary_local, ebase, stream
+    "mixed_read_correct_routed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # storage, pages, data, codes, n, W, num_rows, stream
     "migrate_gather_encode": (_P, _P, _P, _P, _I, _I, _I, _P),
     # data, parity, n_vectors, stream
@@ -146,6 +162,8 @@ ENTRIES = {
     "interwrap_scatter": (_P, _P, _P, _I, _I, _I, _P),
     # q, k, v, out, B, Hq, Hkv, S, D, bf16, scale_log2, causal, stream
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # a_bits, a_codes, b, out, M, N, K, stream
+    "ecc_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -21,9 +21,13 @@ slot->page translation, and values parked off the home pool stay readable
 through a batched VM-read patch. Replacement is a 2Q approximation on
 numpy recency/queue arrays.
 
+On a CREAM-Shard pool (or a wrapped one, such as the fault campaign's
+shadow) the probe stays a global index lookup and the resolved pages take
+the pool's own ``read`` — on a sharded pool one router-fused mixed read
+(:mod:`repro_torch.kernels.mixed`).
+
 Not ported: the reference's telemetry calls (spans, metrics, CREAM-Lens
-records; ROADMAP, queue 1 item 5) and its sharded-pool get branch (the
-port's VM has no sharded pools yet; CREAM-Shard).
+records; ROADMAP, queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -43,19 +47,25 @@ from repro_torch.objcache.slab import SlabAllocator
 from repro_torch.vm.address_space import VirtualMemory
 
 
-def _get_batch(state: PoolState, index: HashIndex, queries: torch.Tensor,
+def _get_batch(state, index: HashIndex, queries: torch.Tensor,
                max_len: int
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """Fused batched get: probe + gather + per-value slice.
 
-    Returns ``(values (n, max_len) int32, lens (n,), slot (n,), found
-    (n,))`` with not-found and beyond-length words zeroed.
+    A bare local pool takes the fused probe + gather kernel; any other
+    pool (sharded, or wrapped so that its ``read`` must see every page)
+    resolves the pages with the index lookup and reads them with its own
+    ``read``. Returns ``(values (n, max_len) int32, lens (n,), slot (n,),
+    found (n,))`` with not-found and beyond-length words zeroed.
     """
-    _, off, length, slot, found = hix.lookup(index, queries)
-    data = hash_ops.lookup_read(
-        state.storage, index.key, index.page, queries, state.layout,
-        state.num_rows, state.boundary, index.probe)
+    page, off, length, slot, found = hix.lookup(index, queries)
+    if isinstance(state, PoolState):
+        data = hash_ops.lookup_read(
+            state.storage, index.key, index.page, queries, state.layout,
+            state.num_rows, state.boundary, index.probe)
+    else:
+        data = state.read(page)
     span = torch.arange(max_len, device=queries.device)
     idx = torch.clamp(off[:, None] + span, max=data.shape[1] - 1)
     vals = data.gather(1, idx.long())
@@ -63,9 +73,9 @@ def _get_batch(state: PoolState, index: HashIndex, queries: torch.Tensor,
     return torch.where(mask, vals, 0), length, slot, found
 
 
-def _write_values(state: PoolState, upages: np.ndarray, inv: torch.Tensor,
+def _write_values(state, upages: np.ndarray, inv: torch.Tensor,
                   offs: torch.Tensor, lens: torch.Tensor,
-                  values: torch.Tensor) -> PoolState:
+                  values: torch.Tensor):
     """Batched chunk write: read-modify-write of the touched pages.
 
     ``upages`` are unique page ids, ``inv[i]`` the row of value ``i``'s page
@@ -155,7 +165,7 @@ class ObjCache:
 
     # -- plumbing ------------------------------------------------------------
     @property
-    def pool(self) -> PoolState:
+    def pool(self):
         return self.vm.pools[self.pool_name]
 
     @property

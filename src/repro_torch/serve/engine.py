@@ -1,15 +1,25 @@
 """CREAM-Serve: continuous batching with KV paged onto the CREAM pool.
 
-Port of ``repro/serve/engine.py`` (local pools; the CREAM-Shard migration
-ring and the telemetry calls are later slices). Every (sequence, layer, KV
-block) lives in one pool page; the block table (:class:`PagedKV`) maps
-them and the :class:`Scheduler` decides residency. A decode step is:
+Port of ``repro/serve/engine.py`` on local and CREAM-Shard pools (the
+telemetry calls are a later slice). Every (sequence, layer, KV block)
+lives in one pool page; the block table (:class:`PagedKV`) maps them and
+the :class:`Scheduler` decides residency. A decode step is:
 
   * ONE page gather — the fused mixed-pool read
-    (:mod:`repro_torch.kernels.mixed`, one kernel launch on the card) with
-    the flattened block tables as its index list;
+    (:mod:`repro_torch.kernels.mixed`, one kernel launch on the card; on a
+    sharded pool its router-fused form) with the flattened block tables
+    as its index list;
   * one model step (:meth:`Transformer.decode_step_paged` over all slots);
   * ONE page scatter of the updated current blocks (``pool.write``).
+
+A migration queued with :meth:`Engine.schedule_migration` runs in the
+next step between the gather and the scatter. On the card its launches
+go to a second CUDA stream, free to run beside the model step's (the
+reference fuses its sharded pool's ``ppermute`` ring into the attend
+program for that overlap), and the scatter waits for them; id lists go
+to the card without blocking the host (:func:`~repro_torch.kernels.
+common.upload`), so queuing the migration never waits for the gather.
+On the CPU it runs in the same place, serially.
 
 Shapes are fixed by ``(max_batch, n_layers, max_blocks)``: unbound slots
 read and write a scratch page and are masked by ``cache_len = 0``.
@@ -24,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layouts import Layout
 from repro_torch.core.pool import PoolState
+from repro_torch.kernels.common import upload
 from repro_torch.kernels.mixed import ops as mixed_ops
 from repro_torch.models import build_model
 from repro_torch.models import transformer
@@ -83,6 +94,8 @@ class Engine:
         self._lens = np.zeros(max_batch, np.int32)
         self._toks = np.zeros(max_batch, np.int32)
         self.steps = 0
+        self._pending_migration: tuple[np.ndarray, np.ndarray] | None = None
+        self._side_stream = None        # the migration's stream on the card
 
     # -- geometry shorthands -------------------------------------------------
     @property
@@ -98,7 +111,7 @@ class Engine:
         return self.kv.max_blocks * self.kv.block_tokens
 
     def _ids(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+        return upload(np.asarray(a, np.int32), self.device)
 
     # -- the per-step compute -------------------------------------------------
     def _attend_fn(self, pages_i32: torch.Tensor, lens: torch.Tensor,
@@ -152,10 +165,12 @@ class Engine:
     def _gather_pages(self, phys: np.ndarray) -> torch.Tensor:
         """The decode step's ONE page gather: the fused mixed-pool read.
 
-        Only a bare pool without a DAEC tier takes it. A DAEC tier falls
-        through to ``pool.read`` — the mixed kernel corrects with SECDED
-        only and would mis-decode those rows — and so does a wrapped pool
-        (the fault campaign's shadow), whose ``read`` must see every page.
+        Only a bare local pool without a DAEC tier takes it. A DAEC tier
+        falls through to ``pool.read`` — the mixed kernel corrects with
+        SECDED only and would mis-decode those rows — and so does a wrapped
+        pool (the fault campaign's shadow), whose ``read`` must see every
+        page. A sharded pool's ``read`` is itself the router-fused read
+        (one launch over all its banks) when it has no DAEC tier.
         """
         pool = self.pool
         if isinstance(pool, PoolState) and pool.daec_rows == 0:
@@ -163,6 +178,43 @@ class Engine:
                                           pool.layout, pool.num_rows,
                                           pool.boundary)
         return pool.read(phys)
+
+    def schedule_migration(self, src_pages, dst_pages) -> None:
+        """Queue a page migration ``src -> dst`` to run beside the next
+        decode step's model compute (see the module docstring); several
+        calls before a step coalesce in order. The pages must not belong
+        to bound decode sequences — relocating a bound page would race the
+        step's gather and scatter; park or preempt the sequence first and
+        call :meth:`refresh_translation` after the step."""
+        src = np.asarray(src_pages, np.int32).reshape(-1)
+        dst = np.asarray(dst_pages, np.int32).reshape(-1)
+        if src.shape != dst.shape:
+            raise ValueError("src/dst page lists must match")
+        if self._pending_migration is not None:
+            src = np.concatenate([self._pending_migration[0], src])
+            dst = np.concatenate([self._pending_migration[1], dst])
+        self._pending_migration = (src, dst)
+
+    def _start_migration(self):
+        """Run the queued migration, if any; returns the CUDA event the
+        step's scatter must wait for (None on the CPU or with none
+        queued). On the card the migration's launches go to a second
+        stream that starts after the step's gather."""
+        pending, self._pending_migration = self._pending_migration, None
+        if pending is None:
+            return None
+        if self.device.type != "cuda":
+            self.vm.pools[self.pool_name] = self.pool.migrate(*pending)
+            return None
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        side = self._side_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.vm.pools[self.pool_name] = self.pool.migrate(*pending)
+            done = torch.cuda.Event()
+            done.record(side)
+        return done
 
     # -- request intake ------------------------------------------------------
     def submit(self, req: ServeRequest) -> None:
@@ -194,7 +246,8 @@ class Engine:
 
     def step(self) -> list[ServeRequest]:
         """One decode step over every bound slot: one page gather, one
-        model step, one page scatter. Returns requests that finished."""
+        model step (beside a queued migration), one page scatter. Returns
+        requests that finished."""
         self.sched.ensure_step()
         rows = np.asarray([s.row if s is not None else -1
                            for s in self.sched.slots])
@@ -205,8 +258,11 @@ class Engine:
         toks = np.where(active, self._toks, 0).astype(np.int32)
         phys = self.kv.gather_phys(rows)                    # (B, L, maxB)
         pages = self._gather_pages(phys.reshape(-1))        # ONE gather
+        migrated = self._start_migration()
         _, nxt, cur_pages = self._attend_fn(pages, self._ids(lens),
                                             self._ids(toks))
+        if migrated is not None:
+            torch.cuda.current_stream(self.device).wait_event(migrated)
         cur_ids = self.kv.current_block_phys(rows, lens)    # (B, L)
         self.vm.pools[self.pool_name] = self.pool.write(
             cur_ids.reshape(-1), cur_pages)                 # ONE scatter

@@ -1,7 +1,10 @@
 """Address spaces, page tables, and the mode-aware frame allocator.
 
-Port of ``repro/vm/address_space.py`` (local pools only; CREAM-Shard's
-sharded pools are a later slice).
+Port of ``repro/vm/address_space.py``. A pool is a local
+:class:`~repro_torch.core.pool.PoolState` or, with ``add_pool(...,
+shards=S)``, a CREAM-Shard :class:`~repro_torch.shard.pool.ShardedPool`
+of ``S`` rank-subset banks; everything above the pool sees the same
+global page ids either way.
 
   * **frame** — one physical pool page ``(pool_name, phys)`` (regular pages
     ``[0, R)``, extra pages ``[R, R + extra)``);
@@ -188,17 +191,24 @@ class VirtualMemory:
     def add_pool(self, name: str, num_rows: int,
                  layout: Layout = Layout.INTERWRAP,
                  boundary: int | None = None, shards: int = 1,
-                 daec_rows: int = 0) -> PoolState:
-        """Create a local pool under VM management."""
+                 daec_rows: int = 0):
+        """Create a pool under VM management: a local pool, or with
+        ``shards > 1`` a :class:`~repro_torch.shard.pool.ShardedPool` of
+        that many banks (CREAM-Shard). ``daec_rows`` carves that many top
+        rows of the protected region into the SEC-DAEC tier."""
         if name in self.pools:
             raise ValueError(f"pool {name!r} exists")
         if shards > 1:
-            raise NotImplementedError(
-                "sharded pools belong to the CREAM-Shard slice (ROADMAP, "
-                "queue 1: CREAM-Shard)")
-        state = make_pool(num_rows, layout, boundary=boundary,
-                          row_words=self.row_words, daec_rows=daec_rows,
-                          device=self.device)
+            from repro_torch.shard.pool import make_sharded_pool
+            state = make_sharded_pool(num_rows, layout, boundary,
+                                      num_shards=shards,
+                                      row_words=self.row_words,
+                                      daec_rows=daec_rows,
+                                      device=self.device)
+        else:
+            state = make_pool(num_rows, layout, boundary=boundary,
+                              row_words=self.row_words, daec_rows=daec_rows,
+                              device=self.device)
         self.pools[name] = state
         self.allocators[name] = FrameAllocator(state)
         return state

@@ -151,8 +151,24 @@ def test_step_pool_matches_reference_and_sharded_raises():
     np.testing.assert_array_equal(_u32(t.storage), np.asarray(j.storage))
     t, stats = t.scrub()
     assert stats.corrected > 0
-    with pytest.raises(NotImplementedError, match="CREAM-Shard"):
+    # the storage-level step is 3-D only, as the reference's; a sharded
+    # pool's 4-D storage steps through step_pool (global row r at bank
+    # r % S, local row r // S), which tests/test_torch_shard.py holds
+    # against the reference on the global-row image
+    with pytest.raises(ValueError, match="step_pool"):
         tm.step(torch.zeros((2, 8, 9, W), dtype=torch.int32))
+    from repro_torch.shard import make_sharded_pool
+    s = make_sharded_pool(16, Layout.INTERWRAP, 0, num_shards=2,
+                          row_words=W, device="cpu")
+    s.storage.copy_(common.to_words(np.asarray(j.storage))
+                    .view(8, 2, 9, W).transpose(0, 1))
+    jm2, tm2 = _models(2, (16, 9, W), 0.0, 4, dict())
+    j, jn = jm2.step_pool(j)
+    s, sn = tm2.step_pool(s)
+    assert sn == jn == 4
+    np.testing.assert_array_equal(
+        _u32(s.storage.transpose(0, 1).reshape(16, 9, W)),
+        np.asarray(j.storage))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from repro_torch.core.pool import make_pool
 from repro_torch.objcache.hash_index import make_index
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, SequenceCache
+from repro_torch.shard import make_sharded_pool
 from repro_torch.vm.address_space import VirtualMemory
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -46,7 +47,10 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.kernels.interwrap.ref",
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.flash_attention.ref",
-            "repro_torch.serve.kv_cache"} <= set(names)
+            "repro_torch.serve.kv_cache", "repro_torch.shard.pool",
+            "repro_torch.shard.router",
+            "repro_torch.kernels.ecc_matmul.ops",
+            "repro_torch.kernels.ecc_matmul.ref"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -82,8 +86,9 @@ def test_forbidden_pattern_catches_what_it_must():
     lambda: make_index(64),
     lambda: build_model(CFG, attn_impl="flash"),
     lambda: SequenceCache(16, row_words=64),
+    lambda: make_sharded_pool(32, num_shards=4),
 ], ids=["Engine", "VirtualMemory", "make_pool", "make_index", "build_model",
-        "SequenceCache"])
+        "SequenceCache", "make_sharded_pool"])
 def test_entry_points_without_cuda_raise(entry, monkeypatch):
     """No device and no CUDA: raise, never fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

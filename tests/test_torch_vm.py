@@ -155,8 +155,12 @@ def test_bad_boundary_and_sharded_pools_raise():
     vm.add_pool("kv", 16, Layout.INTERWRAP)
     with pytest.raises(ValueError, match="bad boundary"):
         MigrationEngine(vm).repartition_with_migration("kv", 4)
-    with pytest.raises(NotImplementedError, match="CREAM-Shard"):
-        vm.add_pool("s", 16, Layout.INTERWRAP, shards=2)
+    # sharded pools need rows and boundary in multiples of shards * 8
+    with pytest.raises(ValueError, match="multiple"):
+        vm.add_pool("s", 16, Layout.INTERWRAP, shards=4)
+    from repro_torch.shard import ShardedPool
+    assert isinstance(vm.add_pool("s", 16, Layout.INTERWRAP, shards=2),
+                      ShardedPool)
     with pytest.raises(ValueError, match="expected"):
         vm.create_tenant("t")
         vm.write("t", vm.alloc("t", 1), torch.zeros((1, 3), dtype=torch.int32))
