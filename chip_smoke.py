@@ -122,11 +122,15 @@ bounds are bytes over 3.35 TB/s and, for flash attention, its flops over
 the card's float32 FMA rate (SMs x 128 x 2 x max SM clock). It holds the
 router-fused mixed read bit-exact on every page id of the serve-shard
 pool and of a 16384-row pool in 8 banks, with planted flips; and
-ecc_matmul at qwen3-0.6b's MLP shapes over 4096 tokens and 4, and the
-reference sweep's, each with one flipped weight bit, within 1e-5 of scale
-and equal to the clean product, its bound the larger of bytes over 3.35
-TB/s and flops over the card's dense bf16 tensor rate (SMs x 4096 x max
-SM clock), torch.matmul of the clean A beside it.
+ecc_matmul at qwen3-0.6b's MLP shapes over 4096 tokens and 4, a ragged
+shape, the decode threshold and the reference sweep's, with single
+data-bit flips in a seeded 1 % of the weight beats and some code-bit
+flips: equal to the clean product and within 1e-5 of scale, then with
+uncorrectable doubles added within 1e-5 of scale; both designs timed
+(the tensor-core tiled product, whose SASS must hold HGMMA, and the
+decode pass up to N = 16), its bound the larger of bytes over 3.35 TB/s
+and flops over the card's dense bf16 tensor rate (SMs x 4096 x max SM
+clock), torch.matmul of the clean A beside it.
 
 Then the card's name and power limit, one JSON line listing every kernel
 with its launches on the serve, serve-shard, cache, campaign,
@@ -188,10 +192,18 @@ SHARDS, SHARD_BOUNDARY = 4, 1280       # serve-shard: 4 banks of 400 rows
 MIG_PAGES, MIG_AT_STEP = 64, 8         # a scheduled migration's pages
 ROUTED_ROWS, ROUTED_SHARDS = 16384, 8  # the routed read's large pool
 #: (M, K, N) of the ecc_matmul row: qwen3-0.6b's MLP weights over a
-#: 4096-token prefill (up / gate, down) and the decode batch, then the
+#: 4096-token prefill (up / gate, down) and the decode batch (up / gate,
+#: down), a ragged shape that fits no tile or TMA stride, 16 columns and
+#: the decode threshold (ops.DECODE_MAX_N = 16) - 1 and + 1, a B whose
+#: rows take 2-D TMA boxes but not the 3-D one (N % 64 != 0), then the
 #: reference sweep's shapes (tests/test_kernels_sweep.py)
 ECC_SHAPES = ((3072, 1024, 4096), (1024, 3072, 4096), (3072, 1024, 4),
+              (1024, 3072, 4), (200, 208, 1001), (3072, 1024, 16),
+              (3072, 1024, 15), (3072, 1024, 17), (300, 320, 520),
               (64, 128, 64), (256, 512, 128))
+ECC_FLIP_SHARE = 0.01      # beats with one planted data-bit flip
+ECC_CODE_SHARE = 0.001     # beats with one planted code-bit flip
+ECC_DOUBLES = 8            # beats with two mantissa-bit flips (uncorrectable)
 ECC_TOKENS = (4096, 4)                 # the ecc-mlp path's token batches
 #: dense bf16 tensor-core flops an SM does per clock on Hopper (NVIDIA's
 #: 989 TFLOP/s at 132 SMs and 1830 MHz); main() sets BF16_FLOPS_S
@@ -283,6 +295,7 @@ def int_rate(torch) -> dict:
 
 SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
                        r"([A-Z][A-Z0-9_]*)(?:\.[A-Z0-9_.]+)?\s*([^;]*);")
+SASS_TARGET = re.compile(r"0x([0-9a-f]+)")
 #: opcodes that do not issue on the integer ALU pipe: IMAD goes to the
 #: FMA pipe, the rest are memory and control
 SASS_OFF_ALU = {"IMAD", "LDG", "STG", "LDC", "LDS", "STS", "BRA", "BSSY",
@@ -294,7 +307,8 @@ def sass_loop_ops(obj: Path) -> dict:
     from ``cuobjdump -sass`` of the built object: ALU-pipe instructions
     (``alu``) and IMADs, on the common path — a conditional forward branch
     to a BSYNC (the DAEC decode's correction of a nonzero syndrome) is
-    taken, so the region it skips is not counted."""
+    taken, so the region it skips is not counted — and every opcode of the
+    whole function (``function_opcodes``)."""
     from repro_torch.kernels import common
     tool = Path(common._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(obj)], check=True,
@@ -304,22 +318,26 @@ def sass_loop_ops(obj: Path) -> dict:
         insns = [(int(m[1], 16), bool(m[2]), m[3], m[4])
                  for m in SASS_INSN.finditer(fn)]
         op_at = {a: op for a, _, op, _ in insns}
-        jumps = [(a, int(args.split()[0], 16)) for a, _, op, args in insns
-                 if op == "BRA" and args.split()]
-        end, start = [(a, t) for a, t in jumps if t < a][-1]
+        # a branch's target is its hex operand (predicate operands such as
+        # `!P3,` may come first)
+        target = {a: int(m[1], 16) for a, _, op, args in insns
+                  if op == "BRA" and (m := SASS_TARGET.search(args))}
+        back = [(a, t) for a, t in target.items() if t < a]
+        end, start = back[-1] if back else (-1, 0)
         counts: dict = {}
         skip = -1
         for a, pred, op, args in insns:
             if not start <= a <= end or a < skip:
                 continue
-            if op == "BRA" and pred:
-                t = int(args.split()[0], 16)
+            if op == "BRA" and pred and a in target:
+                t = target[a]
                 if t > a and op_at.get(t) == "BSYNC":
                     skip = t
             counts[op] = counts.get(op, 0) + 1
         out[fn.split()[0]] = dict(
             alu=sum(n for op, n in counts.items() if op not in SASS_OFF_ALU),
-            imad=counts.get("IMAD", 0), opcodes=counts)
+            imad=counts.get("IMAD", 0), opcodes=counts,
+            function_opcodes=sorted({op for _, _, op, _ in insns}))
     return out
 
 
@@ -1889,45 +1907,163 @@ def phase_routed_kernel(torch, np, dev) -> dict:
     return {"mixed_read_correct_routed": row}
 
 
+def plant_ecc_flips(torch, np, bits, codes, rng, doubles: int):
+    """Seeded faults in a protected matrix: one data-bit flip in
+    ECC_FLIP_SHARE of its 64-bit beats (at most one a beat), one code-bit
+    flip in ECC_CODE_SHARE of the others, and two mantissa-bit flips in
+    ``doubles`` more (detected, uncorrectable: passed through, and finite).
+    Returns the corrupted (bits, codes) and the number of each kind."""
+    from repro_torch.kernels import common
+    beats = bits.numel() // 2
+    n_data = max(1, int(beats * ECC_FLIP_SHARE))
+    n_code = max(1, int(beats * ECC_CODE_SHARE))
+    n_data, n_code = min(n_data, beats // 2), min(n_code, beats // 4)
+    doubles = min(doubles, beats - n_data - n_code)
+    pick = rng.choice(beats, n_data + n_code + doubles, replace=False)
+    data, code, dbl = np.split(pick, [n_data, n_data + n_code])
+    bit = rng.integers(0, 64, n_data)
+    words = [2 * data + bit // 32]
+    masks = [np.left_shift(np.uint32(1), (bit % 32).astype(np.uint32))]
+    # the doubles flip mantissa bits (bits 0..6 of a bf16), so the values
+    # that pass through uncorrected stay finite
+    mant = np.array([h * 16 + i for h in range(4) for i in range(7)])
+    b1 = mant[rng.integers(0, len(mant), len(dbl))]
+    b2 = mant[(np.searchsorted(mant, b1) + rng.integers(1, len(mant),
+                                                        len(dbl)))
+              % len(mant)]                                # a second bit
+    for bb in (b1, b2):
+        words.append(2 * dbl + bb // 32)
+        masks.append(np.left_shift(np.uint32(1), (bb % 32).astype(np.uint32)))
+    # fold the two flips of a double that land in one word into one mask
+    w = np.concatenate(words)
+    m = np.concatenate(masks).astype(np.uint32)
+    order = np.argsort(w, kind="stable")
+    w, m = w[order], m[order]
+    start = np.flatnonzero(np.r_[True, w[1:] != w[:-1]])
+    w, m = w[start], np.bitwise_xor.reduceat(m, start)
+    bad = bits.clone()
+    flat = bad.view(-1)
+    idx = common.upload(w.astype(np.int64), bits.device)
+    flat[idx] ^= common.upload(m.view(np.int32), bits.device)
+    bad_codes = codes.clone()
+    cbit = rng.integers(0, 8, len(code))
+    cw = code // 4                                       # code word of a beat
+    cm = np.left_shift(np.uint32(1),
+                       (8 * (code % 4) + cbit).astype(np.uint32))
+    order = np.argsort(cw, kind="stable")
+    cw, cm = cw[order], cm[order]
+    start = np.flatnonzero(np.r_[True, cw[1:] != cw[:-1]])
+    cw, cm = cw[start], np.bitwise_xor.reduceat(cm, start)
+    cflat = bad_codes.view(-1)
+    cidx = common.upload(cw.astype(np.int64), codes.device)
+    cflat[cidx] ^= common.upload(cm.view(np.int32), codes.device)
+    return bad, bad_codes, dict(data_flips=int(n_data),
+                                code_flips=int(n_code), doubles=int(len(dbl)))
+
+
 def phase_ecc_kernel(torch, np, dev) -> dict:
-    """The SECDED decode-on-load matrix product at ECC_SHAPES, one bit of
-    a protected A word flipped: within 1e-5 of the output's scale (its
-    largest magnitude) against the plain version (decode, then a float32
-    product), and equal to the kernel's product of the clean A. Bound: the
-    larger of its bytes over 3.35 TB/s and its flops over the card's dense
-    bf16 tensor rate; beside it torch.matmul of the clean bf16 A as a
-    comparison (a library product, not a port)."""
+    """The SECDED decode-on-load matrix product at ECC_SHAPES. With seeded
+    single data-bit and code-bit flips planted (plant_ecc_flips) the
+    product equals the kernel's product of the clean A bit for bit and is
+    within 1e-5 of the output's scale (its largest magnitude) of the plain
+    version (decode, then a float32 product); with uncorrectable doubles
+    added as well, only the tolerance is held, the plain version passing
+    them through the same way. Each design's time at each shape where it
+    runs (the tiled product everywhere, the decode pass up to N = 16), the
+    wrapper's pick as ``ms``, all on the clean weights (``ms_flipped``: the
+    wrapper with the flips planted); the bound the larger of bytes over
+    3.35 TB/s and flops over the card's dense bf16 tensor rate; beside it
+    torch.matmul of the clean bf16 A (a library product, not a port), and
+    the time of a one-element fill (the floor of this timing method). The
+    tiled kernel's SASS must hold HGMMA (the tensor cores' wgmma). Below
+    2**30 multiply-adds a B 2 bytes off alignment must give the same
+    product."""
+    from repro_torch.kernels import common
     from repro_torch.kernels.ecc_matmul import ops, ref
+    sass = sass_loop_ops(common.BUILD_DIR / "ecc_matmul.o")
+    tiled = [r for name, r in sass.items() if "ecc_matmul_tiled" in name]
+    check(len(tiled) == 1 and "HGMMA" in tiled[0]["function_opcodes"],
+          f"no HGMMA in the tiled kernel's SASS: "
+          f"{[r['function_opcodes'] for r in tiled]}")
     rng = np.random.default_rng(SEED + 16)
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def entry(name, bits, codes, b):
+        m, n, k = bits.shape[0], b.shape[1], b.shape[0]
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+        common.launch(name, bits, codes, b, out, m, n, k)
+        return out
+
     shapes = {}
     for m, k, n in ECC_SHAPES:
         a = torch.randn((m, k), generator=gen, device=dev).bfloat16()
         b = torch.randn((k, n), generator=gen, device=dev).bfloat16()
         bits, codes = ops.protect(a)
-        bad = bits.clone()
-        at = int(rng.integers(0, bad.numel()))
-        bad.view(-1)[at] ^= 1 << int(rng.integers(0, 31))
-        got = ops.ecc_matmul(bad, codes, b)
+        bad, bad_codes, planted = plant_ecc_flips(torch, np, bits, codes,
+                                                  rng, 0)
+        got = ops.ecc_matmul(bad, bad_codes, b)
         clean = ops.ecc_matmul(bits, codes, b)
-        want = ref.ecc_matmul(bad, codes, b)
+        want = ref.ecc_matmul(bad, bad_codes, b)
         torch.cuda.synchronize()
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
         check(err <= 1e-5 * scale,
               f"ecc_matmul {m}x{k}x{n}: {err} off at scale {scale}")
         check(torch.equal(got, clean),
-              f"ecc_matmul {m}x{k}x{n} did not correct the planted bit")
+              f"ecc_matmul {m}x{k}x{n} did not correct the planted bits")
+        bad2, bad2_codes, with_doubles = plant_ecc_flips(
+            torch, np, bits, codes, rng, ECC_DOUBLES)
+        got2 = ops.ecc_matmul(bad2, bad2_codes, b)
+        want2 = ref.ecc_matmul(bad2, bad2_codes, b)
+        torch.cuda.synchronize()
+        scale2 = float(want2.abs().max())
+        err2 = float((got2 - want2).abs().max())
+        check(bool(torch.isfinite(got2).all()) and err2 <= 1e-5 * scale2,
+              f"ecc_matmul {m}x{k}x{n} with doubles: {err2} off at scale "
+              f"{scale2}")
+        if m * n * k < 2**30:
+            # B 2 bytes off 16-byte alignment: no TMA, no 16-byte loads
+            buf = torch.empty(k * n + 8, dtype=torch.bfloat16, device=dev)
+            b_off = buf[1:1 + k * n].view(k, n)
+            b_off.copy_(b)
+            check(torch.equal(ops.ecc_matmul(bad, bad_codes, b_off), got),
+                  f"ecc_matmul {m}x{k}x{n} with an unaligned B differs")
+            del buf, b_off
+        designs = {"tiled": "ecc_matmul_tiled"}
+        if ops.uses_decode(k, n):
+            designs["decode"] = "ecc_matmul_decode"
+        times = {}
+        for design, name in designs.items():
+            other = entry(name, bad, bad_codes, b)
+            torch.cuda.synchronize()
+            check(torch.equal(other, got) or float(
+                (other - want).abs().max()) <= 1e-5 * scale,
+                f"ecc_matmul {design} {m}x{k}x{n} disagrees")
+            times[design] = median_ms(lambda: entry(name, bits, codes, b), 20)
         nbytes = 4 * (m * k // 2 + m * k // 16) + 2 * k * n + 4 * m * n
+        # times on the clean protected weights (errors are rare in use);
+        # with the planted flips beside them
         shapes[f"{m}x{k}x{n}"] = dict(
             m=m, k=k, n=n, max_abs_err=err, scale=scale,
-            ms=median_ms(lambda: ops.ecc_matmul(bad, codes, b), 20),
-            plain_ms=median_ms(lambda: ref.ecc_matmul(bad, codes, b), 3),
+            max_abs_err_with_doubles=err2, planted=planted,
+            planted_with_doubles=with_doubles,
+            design="decode" if ops.uses_decode(k, n) else "tiled",
+            ms=median_ms(lambda: ops.ecc_matmul(bits, codes, b), 20),
+            ms_flipped=median_ms(lambda: ops.ecc_matmul(bad, bad_codes, b),
+                                 20),
+            design_ms=times,
+            plain_ms=median_ms(lambda: ref.ecc_matmul(bits, codes, b), 3),
             library_ms=median_ms(lambda: torch.matmul(a, b), 20),
             bound=bound_ms(nbytes, 2 * m * n * k, BF16_FLOPS_S))
-        del a, b, bits, codes, bad, got, clean, want
+        del a, b, bits, codes, bad, bad_codes, bad2, bad2_codes
+        del got, clean, want, got2, want2
+        torch.cuda.empty_cache()
+    # the floor of this timing method: one launch of a one-element fill
+    one = torch.empty(1, device=dev)
+    floor_ms = median_ms(lambda: one.fill_(1.0), 20)
     first = shapes["x".join(map(str, ECC_SHAPES[0]))]
     return {"ecc_matmul": dict(first, shapes=shapes,
+                               launch_floor_ms=floor_ms,
                                max_abs_err=max(r["max_abs_err"]
                                                for r in shapes.values()))}
 

@@ -35,6 +35,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.kernels.common import upload
+
+
 @dataclass(frozen=True)
 class FlipRecord:
     row: int
@@ -74,9 +77,8 @@ def _land(storage: torch.Tensor, words: np.ndarray, masks: np.ndarray,
     if not words.size:
         return
     flat = storage.view(-1)
-    idx = torch.from_numpy(words.astype(np.int64)).to(storage.device)
-    m = torch.from_numpy(masks.astype(np.uint32).view(np.int32)).to(
-        storage.device)
+    idx = upload(words.astype(np.int64), storage.device)
+    m = upload(masks.astype(np.uint32).view(np.int32), storage.device)
     flat[idx] = flat[idx] ^ m if op == "xor" else flat[idx] | m
 
 

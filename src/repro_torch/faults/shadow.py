@@ -47,6 +47,7 @@ import torch
 from repro_torch.core import secded
 from repro_torch.core.layouts import extra_page_count
 from repro_torch.core.pool import _as_words, _host_ids, _landing_rows
+from repro_torch.kernels.common import upload
 from repro_torch.vm.address_space import frame_classes
 
 
@@ -146,10 +147,9 @@ class ShadowedPool:
         match = np.zeros(ids.size, bool)
         if valid.any():
             sel = np.flatnonzero(valid)
-            at = torch.from_numpy(sel).to(data.device)
+            at = upload(sel, data.device)
             match[sel] = (data[at] == self._shadow[
-                torch.from_numpy(ids[sel]).to(data.device)]).all(
-                    dim=1).cpu().numpy()
+                upload(ids[sel], data.device)]).all(dim=1).cpu().numpy()
         status = status.cpu().numpy()
         detected = status == secded.DETECTED_UNCORRECTABLE
         corrected = ((status == secded.CORRECTED_DATA) |
@@ -199,8 +199,8 @@ class ShadowedPool:
         land = np.flatnonzero(_landing_rows(ids, valid))
         if land.size:
             dev = self._shadow.device
-            self._shadow[torch.from_numpy(ids[land]).to(dev)] = \
-                words[torch.from_numpy(land).to(dev)]
+            rows = upload(land, dev)
+            self._shadow[upload(ids[land], dev)] = words[rows]
             self._valid[ids[land]] = True
         return self
 

@@ -162,8 +162,9 @@ ENTRIES = {
     "interwrap_scatter": (_P, _P, _P, _I, _I, _I, _P),
     # q, k, v, out, B, Hq, Hkv, S, D, bf16, scale_log2, causal, stream
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # a_bits, a_codes, b, out, M, N, K, stream
-    "ecc_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # a_bits, a_codes, b, out, M, N, K, stream (both designs)
+    "ecc_matmul_tiled": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ecc_matmul_decode": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -231,16 +232,17 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, counts_as: str | None = None) -> None:
     """Call C entry ``name`` on torch's current stream; raise on a CUDA
     error. Tensors pass as device pointers, numbers as ``ENTRIES`` types
-    them."""
+    them. The launch counts under ``counts_as`` (a kernel with several C
+    entries), else under ``name``."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), name)(*conv, stream)
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[counts_as or name] += 1
 
 
 def check_contiguous(name: str, *tensors: torch.Tensor) -> None:

@@ -1,7 +1,12 @@
 """SECDED decode-on-load matrix product: the dispatching wrapper.
 
-CPU tensors take the plain version (:mod:`.ref`); CUDA tensors launch the
-kernel in ``csrc/ecc_matmul.cu`` or raise. There is no fallback.
+CPU tensors take the plain version (:mod:`.ref`); CUDA tensors launch one
+of the two kernels in ``csrc/ecc_matmul.cu`` or raise. There is no
+fallback. Up to :data:`DECODE_MAX_N` columns of B the bytes-bound decode
+pass runs (``ecc_matmul_decode``: A streamed once, B in shared memory);
+above it, or where B[:, :N] would not fit in shared memory, the tiled
+tensor-core product (``ecc_matmul_tiled``). Either counts one launch of
+``ecc_matmul``.
 """
 from __future__ import annotations
 
@@ -12,6 +17,22 @@ from repro_torch.kernels.ecc_matmul import ref
 
 protect = ref.protect
 unprotect = ref.unprotect
+
+#: widest B the decode pass takes: on an H100 it beats the tiled product
+#: at N = 4, 8 and 16 and loses from N = 24 (chip_smoke.py's
+#: phase_ecc_kernel times both designs at N = 15, 16 and 17; PERF.md)
+DECODE_MAX_N = 16
+#: most bytes of B[:, :N] (N padded to 4, 8 or 16) the decode pass keeps
+#: in shared memory (csrc/ecc_matmul.cu kDecodeSmemB)
+DECODE_SMEM_B = 192 * 1024
+
+
+def uses_decode(k: int, n: int) -> bool:
+    """Whether an (M, K) x (K, N) product takes the decode pass."""
+    if n > DECODE_MAX_N:
+        return False
+    padded = next(p for p in (4, 8, 16) if n <= p)
+    return k * padded * 2 <= DECODE_SMEM_B
 
 
 def ecc_matmul(a_bits: torch.Tensor, a_codes: torch.Tensor,
@@ -41,5 +62,8 @@ def ecc_matmul(a_bits: torch.Tensor, a_codes: torch.Tensor,
     if not k:
         return out.zero_()
     if m and n:
-        common.launch("ecc_matmul", a_bits, a_codes, b, out, m, n, k)
+        entry = ("ecc_matmul_decode" if uses_decode(k, n)
+                 else "ecc_matmul_tiled")
+        common.launch(entry, a_bits, a_codes, b, out, m, n, k,
+                      counts_as="ecc_matmul")
     return out

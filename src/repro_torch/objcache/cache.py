@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.core.pool import PoolState
 from repro_torch.core.protection import _ORDER, Protection
-from repro_torch.kernels.common import to_u32, to_words
+from repro_torch.kernels.common import to_u32, upload
 from repro_torch.kernels.hash import ops as hash_ops
 from repro_torch.objcache import hash_index as hix
 from repro_torch.objcache.hash_index import HashIndex
@@ -226,10 +226,10 @@ class ObjCache:
 
     def _device_keys(self, keys: np.ndarray) -> torch.Tensor:
         """Checked int64 keys -> int32 key bits on the VM's device."""
-        return to_words(keys.astype(np.uint32)).to(self.vm.device)
+        return upload(keys.astype(np.uint32).view(np.int32), self.vm.device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.vm.device)
+        return upload(a, self.vm.device)
 
     # -- policy --------------------------------------------------------------
     def _drop_slots(self, slots: np.ndarray, evicted: bool) -> None:
@@ -338,7 +338,8 @@ class ObjCache:
         lens_d = self._dev(lens[sub])
         self.vm.pools[self.pool_name] = _write_values(
             self.pool, upages, self._dev(inv.reshape(-1)), off_d, lens_d,
-            to_words(values[sub]).to(self.vm.device))
+            upload(np.asarray(values[sub], np.uint32).view(np.int32),
+                   self.vm.device))
         self.vm.stats.device_writes += len(upages)
         # 4) index insert; a full probe window evicts-and-retries (rare)
         qsub = self._device_keys(keys[sub])
@@ -459,6 +460,7 @@ class ObjCache:
         if len(lv):
             ph = self._phys[self._vpn[lv]]
             pages[lv] = np.where(ph >= 0, ph, 0).astype(np.int32)
-        self.index = hix.replace_pages(self.index, torch.from_numpy(pages))
+        self.index = hix.replace_pages(self.index,
+                                       upload(pages, self.index.key.device))
         return {"away_pages": len(away_vpns),
                 "device_pages": int((self._phys >= 0).sum())}

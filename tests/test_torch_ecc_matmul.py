@@ -5,7 +5,8 @@ its Pallas kernel in interpret mode) and the port's wrapper, which takes
 its plain version on the CPU; one bit of a protected weight word is
 flipped. The CUDA kernel runs on the card only (``chip_smoke.py``); here
 the wrapper is checked to refuse a non-CPU tensor rather than fall back,
-and to hand its C entry the declared arguments.
+and to hand the C entry of the design it picks by N the declared
+arguments, counting one launch either way.
 
 Tolerances: ``protect`` / ``unprotect`` are bit-exact; the product
 matches the reference within 1e-5 of the output's scale (its largest
@@ -23,7 +24,10 @@ from repro.kernels.ecc_matmul import ref as jref
 from repro_torch.kernels import common
 from repro_torch.kernels.ecc_matmul import ops, ref
 
-SHAPES = [(64, 128, 64), (128, 256, 128), (256, 512, 128), (48, 32, 5)]
+#: the last two are ragged: no dimension of (200, 208, 1001) fits a tile
+#: or a TMA stride, and (3, 16, 4) is one code word a row
+SHAPES = [(64, 128, 64), (128, 256, 128), (256, 512, 128), (48, 32, 5),
+          (200, 208, 1001), (3, 16, 4)]
 
 
 def _bf16_torch(a: jnp.ndarray) -> torch.Tensor:
@@ -92,13 +96,55 @@ def test_non_cpu_tensors_never_fall_back():
 def test_wrapper_marshals_the_declared_c_arguments(monkeypatch):
     seen = []
     monkeypatch.setattr(common, "check_cuda_words", lambda *a: None)
-    monkeypatch.setattr(common, "launch",
-                        lambda entry, *args: seen.append((entry, args)))
+    monkeypatch.setattr(common, "launch", lambda entry, *args, **kw:
+                        seen.append((entry, args, kw)))
     out = ops.ecc_matmul(_meta(8, 16), _meta(8, 2),
                          _meta(32, 5, dtype=torch.bfloat16))
-    [(entry, args)] = seen
-    assert entry == "ecc_matmul"
+    [(entry, args, kw)] = seen
+    assert entry == "ecc_matmul_decode"
+    assert kw == {"counts_as": "ecc_matmul"}
     assert len(args) + 1 == len(common.ENTRIES[entry])
     assert all(isinstance(t, torch.Tensor) for t in args[:4])
     assert args[4:] == (8, 5, 32)
     assert out.shape == (8, 5) and out.dtype == torch.float32
+
+
+class _Library:
+    """Stands in for the built library: records each C call, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+T = ops.DECODE_MAX_N
+#: K too deep for B[:, :4] in the decode pass's shared memory
+DEEP_K = 16 * (ops.DECODE_SMEM_B // (2 * 4 * 16) + 1)
+
+
+@pytest.mark.parametrize("k,n,entry", [
+    (32, T - 1, "ecc_matmul_decode"), (32, T, "ecc_matmul_decode"),
+    (32, T + 1, "ecc_matmul_tiled"), (32, 4096, "ecc_matmul_tiled"),
+    (DEEP_K, 4, "ecc_matmul_tiled")])
+def test_threshold_picks_the_c_entry_and_counts_one_launch(k, n, entry,
+                                                           monkeypatch):
+    """N at and below the threshold reaches the decode pass, above it (or
+    where B would not fit in shared memory) the tiled product; the real
+    ``common.launch`` passes the declared arguments and the stream and
+    counts the call once under ``ecc_matmul``, whichever entry ran."""
+    lib = _Library()
+    monkeypatch.setattr(common, "check_cuda_words", lambda *a: None)
+    monkeypatch.setattr(common, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 7})())
+    monkeypatch.setattr(common, "LAUNCHES", common.collections.Counter())
+    ops.ecc_matmul(_meta(8, k // 2), _meta(8, k // 16),
+                   _meta(k, n, dtype=torch.bfloat16))
+    [(name, args)] = lib.calls
+    assert name == entry
+    assert len(args) == len(common.ENTRIES[entry])
+    assert all(isinstance(p, int) for p in args[:4])      # device pointers
+    assert args[4:] == (8, n, k, 7)
+    assert common.LAUNCHES == {"ecc_matmul": 1}

@@ -513,6 +513,79 @@ def test_upload_to_the_card_is_pinned_and_non_blocking(monkeypatch):
     assert host.dtype == torch.int32 and host.tolist() == [0, 1, 2]
 
 
+def _cache_ids(module):
+    """An ObjCache: keyed sets and gets, then a translation refresh that
+    rebuilds the slot->page table on the device."""
+    from repro_torch.objcache import ObjCache
+    from repro_torch.vm import VirtualMemory
+    vm = VirtualMemory(row_words=16, device="cpu")
+    vm.add_pool("dimm", 32, Layout.INTERWRAP)
+    cache = ObjCache(vm, "dimm", index_capacity=64, probe=8)
+    keys = np.arange(1, 9)
+    cache.set_many(keys, np.tile(keys[:, None], (1, 8 * 16)).astype(
+        np.uint32))
+    vals, _, found = cache.get_many(keys)
+    assert found.all() and (vals[:, 0] == keys).all()
+    cache.refresh_translation()
+
+
+def _shadow_ids(module):
+    """A shadowed pool: a mirrored write, then a classified read."""
+    from repro_torch.faults.shadow import ShadowedPool
+    sh = ShadowedPool(tpool.make_pool(16, Layout.INTERWRAP, boundary=8,
+                                      row_words=16, device="cpu"))
+    data = np.arange(2 * 8 * 16, dtype=np.uint32).reshape(2, 8 * 16)
+    sh.write(np.array([1, 3]), data)
+    got = sh.read(np.array([1, 3]))
+    np.testing.assert_array_equal(common.to_u32(got), data)
+
+
+def _injection_ids(module):
+    """The injection tick's stuck-at cells, then a targeted flip."""
+    from repro_torch.core.injection import FlipRecord, apply_flips
+    storage = torch.zeros((16, 9, 16), dtype=torch.int32)
+    out, n = FaultModel.make(5, n_hard=2, shape=(16, 9, 16)).step(storage)
+    assert n == 2 and bool(out.any())
+    out = apply_flips(out, [FlipRecord(3, 1, 2, 7)])
+    assert int(out[3, 1, 2]) & (1 << 7)
+
+
+#: module whose uploads go to the device -> (driver, {function: distinct
+#: upload lines in it})
+ID_UPLOADS = {
+    "repro_torch.objcache.cache": (_cache_ids, {
+        "_device_keys": 1, "_dev": 1, "_set_unique": 1,
+        "refresh_translation": 1}),
+    "repro_torch.faults.shadow": (_shadow_ids, {"_classify": 2, "write": 2}),
+    "repro_torch.core.injection": (_injection_ids, {"_land": 2}),
+}
+
+
+@pytest.mark.parametrize("module", list(ID_UPLOADS))
+def test_cache_shadow_and_injection_ids_go_through_upload(module,
+                                                          monkeypatch):
+    """The object cache's keys, ids, values and slot->page table, the
+    shadow's classify and mirrored write, and the injection tick's word
+    indices and masks reach the device through ``common.upload`` (pinned
+    and non-blocking on the card), not a pageable ``.to(device)`` copy:
+    every call site in each function is seen."""
+    import importlib
+    import sys
+    mod = importlib.import_module(module)
+    sites = set()
+
+    def counting(a, device):
+        caller = sys._getframe(1)
+        sites.add((caller.f_code.co_name, caller.f_lineno))
+        return common.upload(a, device)
+
+    monkeypatch.setattr(mod, "upload", counting)
+    drive, want = ID_UPLOADS[module]
+    drive(module)
+    got = {fn: sum(1 for f, _ in sites if f == fn) for fn in want}
+    assert got == want, sites
+
+
 def test_to_u32_is_a_host_copy_of_a_cpu_tensor_too():
     """A snapshot of a pool's storage must not follow later in-place
     writes (shard_sequence in chip_smoke.py compares such snapshots)."""
