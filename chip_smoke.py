@@ -61,7 +61,9 @@ exits nonzero:
                   parity8 check kernels), counts exactly the planted flips
                   and upgrades the pool to all-SECDED with every value intact;
  13. cache-profile  one full-batch get and set: host-clock time, device
-                  kernel time by class under torch.profiler, busy share;
+                  kernel time by class under torch.profiler, the device
+                  operations each ran, busy share, and the port's launches
+                  (a set is one parity8_write, no standalone encode);
  14. campaign-serve  the serve phases' requests (two on the paid tier, six
                   on batch) on a pool with a quarter of its rows CREAM,
                   under memcached-FIT single-bit injection with the tenant
@@ -113,6 +115,16 @@ exits nonzero:
                   beside one step on a second stream, read back intact:
                   a warm-up, one timed against the median step, one
                   traced as in phase 5.
+
+Phase 2 also holds parity8_write, the PARITY pool's one-pass write,
+bit-exact against its plain version and against the eager chain it
+replaced (page_coords scatter, id upload, gather, standalone encode,
+parity scatter) on a half-CREAM PARITY pool of CACHE_ROWS rows, at the
+set batch (CREAM, SECDED and extra ids) and at a sweep of the R/2 CREAM
+pages: its time beside the chain's, a one-element fill's (the launch
+floor) and its byte bound, and the device operations one write makes
+under torch.profiler, fused and chained. No main-path phase may launch
+the standalone parity8_encode.
 
 Phase 2 also holds the InterWrap gather / scatter bit-exact against their
 plain versions on every page id (extras included) of the serve pool and of
@@ -226,6 +238,8 @@ KERNELS = {
                        "src/repro/kernels/parity8/kernel.py:52"),
     "parity8_check": ("src/repro_torch/csrc/parity8.cu",
                       "src/repro/kernels/parity8/kernel.py:67"),
+    "parity8_write": ("src/repro_torch/csrc/parity8.cu",
+                      "src/repro/kernels/parity8/kernel.py:52"),
     "scrub_rows": ("src/repro_torch/csrc/scrub.cu",
                    "src/repro/kernels/scrub/kernel.py:51"),
     "daec_encode": ("src/repro_torch/csrc/daec.cu",
@@ -572,6 +586,108 @@ def phase_kernels(torch, np, dev) -> dict:
     return dict(n_pages=n, row_words=W, kernels=out)
 
 
+def profiled_ops(torch, fn):
+    """Device operations (kernels, copies, fills) of one call of ``fn``
+    under torch.profiler, or "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_breakdown(prof, 1.0).get("device_events", "not measured")
+
+
+def parity_chain(torch, np, storage, ids, pages, data, num_rows: int,
+                 boundary: int) -> None:
+    """The PARITY pool's write before the fused kernel, call for call: the
+    page_coords scatter of the data, an upload of the positions of the
+    CREAM and extra pages (``ids`` on the host), the standalone parity8
+    encode over a gathered copy of them and the parity-index scatter into
+    the code lane (int64 ``pages``, as the pool uploaded them)."""
+    from repro_torch.core.layouts import (CODE_LANE, Layout, page_coords,
+                                          parity_coords)
+    from repro_torch.kernels.common import upload
+    from repro_torch.kernels.parity8 import ops as parity8_ops
+    W = storage.shape[2]
+    rows, lanes, _ = page_coords(Layout.PARITY, num_rows, boundary, pages, W)
+    storage[rows, lanes, :] = data.reshape(-1, 8, W)
+    keep = (ids < boundary) | (ids >= num_rows)
+    sel = upload(np.flatnonzero(keep), storage.device)
+    prow, off = parity_coords(num_rows, boundary, pages[sel], W)
+    idx = off[:, None] + torch.arange(W // 8, device=pages.device)
+    storage[torch.clamp(prow, 0, num_rows - 1)[:, None], CODE_LANE,
+            idx] = parity8_ops.encode(data[sel])
+
+
+def parity_write_kernel(torch, np, dev, words, rng) -> dict:
+    """parity8_write on a half-CREAM PARITY pool of CACHE_ROWS rows, at the
+    set batch (SET_BATCH distinct ids mixing CREAM, SECDED and extra
+    pages) and at a sweep of the R/2 CREAM pages: bit-exact against its
+    plain version and against the eager chain it replaces, with its time,
+    the chain's (``chain_ms``), the plain version's, the bound, a launch's
+    floor and the device operations one write makes under torch.profiler,
+    fused and chained."""
+    from repro_torch.core.layouts import LANES, Layout, extra_page_count
+    from repro_torch.kernels.parity8 import ops as parity8_ops
+    from repro_torch.kernels.parity8 import ref as parity8_ref
+    R, half, D = CACHE_ROWS, CACHE_ROWS // 2, 8 * W
+    extra = extra_page_count(Layout.PARITY, half, W)
+    sec_n = extra_n = SET_BATCH // 8
+    set_ids = np.concatenate([
+        rng.choice(half, SET_BATCH - sec_n - extra_n, replace=False),
+        half + rng.choice(R - half, sec_n, replace=False),
+        R + rng.choice(extra, extra_n, replace=False)])
+    batches = {"set_batch": rng.permutation(set_ids),
+               "sweep": np.arange(half)}
+    storage = words(R, LANES, W)
+    one = torch.empty(1, device=dev)
+    floor_ms = median_ms(lambda: one.fill_(1.0), 20)
+    shapes = {}
+    for name, ids in batches.items():
+        n = len(ids)
+        coded = int(((ids < half) | (ids >= R)).sum())
+        pages = torch.as_tensor(ids, dtype=torch.int64, device=dev)
+        data = words(n, D)
+        got, want, chained = (storage.clone() for _ in range(3))
+        parity8_ops.write(got, pages, data, half)
+        parity8_ref.write(want, pages, data, half)
+        parity_chain(torch, np, chained, ids, pages, data, R, half)
+        torch.cuda.synchronize()
+        check(not torch.equal(got, storage), f"parity8_write {name} wrote "
+              "nothing")
+        shapes[name] = dict(
+            pages=n, coded_pages=coded,
+            max_abs_err=words_err(got, want),
+            chain_max_abs_err=words_err(chained, want),
+            ms=median_ms(lambda: parity8_ops.write(got, pages, data, half),
+                         20),
+            chain_ms=median_ms(lambda: parity_chain(
+                torch, np, chained, ids, pages, data, R, half), 20),
+            plain_ms=median_ms(lambda: parity8_ref.write(
+                want, pages, data, half), 3),
+            launch_floor_ms=floor_ms,
+            device_ops_per_write=dict(
+                fused=profiled_ops(torch, lambda: parity8_ops.write(
+                    got, pages, data, half)),
+                chain=profiled_ops(torch, lambda: parity_chain(
+                    torch, np, chained, ids, pages, data, R, half))),
+            # each page read once and its slices written once, the int64
+            # ids read once, W/8 parity words written per CREAM or extra
+            # page
+            bound=bound_ms(4 * (2 * n * D + 2 * n + coded * W // 8),
+                           coded * D // 4))
+        check(shapes[name]["chain_max_abs_err"] == 0,
+              f"the eager chain and the plain write differ ({name})")
+        del got, want, chained, data
+    del storage
+    torch.cuda.empty_cache()
+    return dict(shapes["set_batch"], library_ms=None,
+                max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
+                shapes=shapes)
+
+
 def phase_cache_kernels(torch, np, dev) -> dict:
     """The CREAM-Cache path's kernels against their plain versions, at the
     shapes that path gives them: the get batch against a filled index on a
@@ -700,6 +816,10 @@ def phase_cache_kernels(torch, np, dev) -> dict:
                          max_abs_err=max(r["max_abs_err"]
                                          for r in per_shape.values()),
                          shapes=per_shape)
+
+    # -- parity8 write: a set batch and a sweep into a half-CREAM PARITY
+    # pool, against its plain version and the eager chain it replaces -----
+    out["parity8_write"] = parity_write_kernel(torch, np, dev, words, rng)
 
     # -- scrub: the SECDED sweep of R/2 rows --------------------------------
     rows = coded_rows(half)
@@ -1249,8 +1369,12 @@ def phase_cache_adapt(torch, np) -> tuple[dict, dict]:
 def phase_cache_profile(torch, np, cache) -> dict:
     """Where a full-batch get and set spend their time on the PARITY cache
     of cache-zipf: host clock without the profiler, then device kernel
-    time by class under torch.profiler and the device's busy share."""
+    time by class under torch.profiler, the device operations it ran
+    (``device_events``: kernels, copies, fills) and the device's busy
+    share, and the port's kernel launches of each op."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import common
     span = cache.max_value_words
     rng = np.random.default_rng(SEED + 5)
     fresh = iter(range(2**30, 2**31, SET_BATCH))
@@ -1269,13 +1393,19 @@ def phase_cache_profile(torch, np, cache) -> dict:
     out = {}
     for op in ("get", "set"):
         one(op)                              # warm
+        common.LAUNCHES.clear()
         plain = one(op)
+        launches = dict(common.LAUNCHES)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             profiled = one(op)
         out[op] = dict(batch=GET_BATCH if op == "get" else SET_BATCH,
                        host_ms=plain, profiled_ms=profiled,
+                       launches=launches,
                        **device_breakdown(prof, profiled, top=8))
+    set_l = out["set"]["launches"]
+    check(set_l.get("parity8_write") == 1 and "parity8_encode" not in set_l,
+          f"a set on the PARITY cache launched {set_l}")
     return out
 
 
@@ -2491,6 +2621,12 @@ def main() -> int:
     del model
     main_paths = [l_c, l_s, l_r, l_ss, *l_z.values(), *l_w.values(), l_d,
                   l_a, l_cs, l_cd, l_pl, *l_sq, l_em]
+    # a PARITY pool's write is one parity8_write; the standalone encode
+    # keeps the TPU kernel's contract and is on no main path
+    check(not any(l.get("parity8_encode") for l in main_paths),
+          "a main-path phase launched the standalone parity8_encode")
+    check(any(l.get("parity8_write") for l in main_paths),
+          "no main-path phase launched parity8_write")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

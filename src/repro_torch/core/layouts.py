@@ -13,6 +13,7 @@ Geometry: a pool is ``(R, 9, W)`` uint32 words — R rows, 9 lanes (8 data
 from __future__ import annotations
 
 import enum
+import functools
 import math
 
 import numpy as np
@@ -55,9 +56,13 @@ def parity_table_rows(num_rows: int, extra_pages: int, row_words: int) -> int:
     return math.ceil(num_rows / 8) + math.ceil(extra_pages / 8)
 
 
+@functools.cache
 def extra_page_count(layout: Layout, num_rows: int,
                      row_words: int = DEFAULT_ROW_WORDS) -> int:
-    """Number of extra (reclaimed-capacity) pages a region of `num_rows` offers."""
+    """Number of extra (reclaimed-capacity) pages a region of `num_rows` offers.
+
+    Cached: PARITY's count is a search over the region, and every access
+    of a pool asks for it."""
     if layout == Layout.BASELINE_ECC:
         return 0
     if layout in (Layout.PACKED, Layout.RANK_SUBSET, Layout.INTERWRAP):

@@ -28,8 +28,9 @@ PARITY pools with a CREAM region keep an 8-bit parity byte per 64-byte
 line of every CREAM and extra page in packed tables at the bottom of the
 code lane (:func:`~repro_torch.core.layouts.parity_coords`), maintained by
 the parity8 kernels (:mod:`repro_torch.kernels.parity8`): reads report a
-corrupt line as status 3, writes re-encode, and a repartition re-homes the
-surviving extra pages, whose home depends on the boundary-sized tables.
+corrupt line as status 3, a write lands the pages and their parity in one
+``parity8_write`` launch, and a repartition re-homes the surviving extra
+pages, whose home depends on the boundary-sized tables.
 
 Storage updates. The reference is functional (old state in, new state
 out). The port writes in place exactly where the reference donates the old
@@ -356,13 +357,15 @@ def read_pages_any(state: PoolState, pages) -> torch.Tensor:
 def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
     """The write engine, updating ``state.storage`` in place.
 
-    One data scatter over the ``page_coords`` translation, one SECDED code
-    scatter for the protected pages and, on a PARITY pool, one packed-parity
-    scatter for the CREAM and extra pages; a whole-pool InterWrap pool takes
-    the InterWrap scatter and nothing else. Rows masked out by ``valid`` (and
-    the rows each codec does not cover) are removed before scattering — the
-    reference routes them out of range and lets ``mode="drop"`` discard
-    them. Of duplicate ids the last valid row lands (:func:`_landing_rows`).
+    One data scatter over the ``page_coords`` translation and one SECDED
+    (or DAEC) code scatter for the protected pages; a whole-pool InterWrap
+    pool takes the InterWrap scatter and nothing else. On a PARITY pool the
+    data scatter and the packed parity of the CREAM and extra pages are one
+    :func:`parity8_ops.write` (one launch on the card). Rows masked out by
+    ``valid`` (and the rows each codec does not cover) are removed before
+    scattering — the reference routes them out of range and lets
+    ``mode="drop"`` discard them. Of duplicate ids the last valid row lands
+    (:func:`_landing_rows`).
     """
     ids = _host_ids(state, pages)
     n = ids.shape[0]
@@ -374,13 +377,17 @@ def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
         ids = ids[land]
         data = data[upload(np.flatnonzero(land), state.device)]
     pages = upload(ids, state.device)
-    if _whole_interwrap(state):         # distinct ids: _landing_rows
-        interwrap_ops.scatter(state.storage, pages, data, state.num_rows)
-        return state
-    rows, lanes, _ = page_coords(state.layout, state.num_rows,
-                                 state.boundary, pages, state.row_words)
     storage = state.storage
-    storage[rows, lanes, :] = data.reshape(-1, DATA_LANES, state.row_words)
+    if _whole_interwrap(state):         # distinct ids: _landing_rows
+        interwrap_ops.scatter(storage, pages, data, state.num_rows)
+        return state
+    if state.has_parity:                # distinct ids: _landing_rows
+        parity8_ops.write(storage, pages, data, state.boundary)
+    else:
+        rows, lanes, _ = page_coords(state.layout, state.num_rows,
+                                     state.boundary, pages, state.row_words)
+        storage[rows, lanes, :] = data.reshape(-1, DATA_LANES,
+                                               state.row_words)
     is_sec = (ids >= state.boundary) & (ids < state.num_rows)
     is_daec = is_sec & (ids >= state.daec_start)
     for mask, codec in ((is_sec & ~is_daec, secded_ops),
@@ -388,10 +395,6 @@ def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
         if mask.any():
             sel = upload(np.flatnonzero(mask), state.device)
             storage[pages[sel], CODE_LANE, :] = codec.encode(data[sel])
-    if state.has_parity and not is_sec.all():
-        sel = upload(np.flatnonzero(~is_sec), state.device)
-        storage[_parity_index(state, pages[sel])] = parity8_ops.encode(
-            data[sel])
     return state
 
 

@@ -1,5 +1,6 @@
 // Page -> (row, lane) translation of one W-word slice, shared by the
-// kernels that gather whole pages from a mixed pool (mixed.cu, hash.cu).
+// kernels that move whole pages in a mixed pool (mixed.cu, hash.cu,
+// interwrap.cu, parity8.cu), and a PARITY page's packed-parity slot.
 //
 // The rules of repro_torch.core.layouts.page_coords, one slice at a time:
 // regular pages [0, boundary) are CREAM, [boundary, num_rows) SECDED rows,
@@ -28,6 +29,20 @@ __device__ __forceinline__ void page_slice(int page, int k, int interwrap,
     row = is_extra ? ebase + 8 * e + k : page;
     lane = is_extra ? 8 : k;
   }
+}
+
+// A PARITY pool's packed parity of a CREAM or extra page: code-lane row
+// `prow` holds 8 pages' entries of row_words / 8 words each, and the page's
+// entry starts at word `off` (layouts.parity_coords). Extra page e counts
+// as page boundary + e, in the second block of tables that starts at row
+// `tables` = ceil(boundary / 8). SECDED pages have no slot.
+__device__ __forceinline__ void parity_slot(int page, int num_rows,
+                                            int boundary, int tables,
+                                            int row_words, int& prow,
+                                            int& off) {
+  const int rel = page >= num_rows ? boundary + (page - num_rows) : page;
+  prow = rel < boundary ? rel / 8 : tables + (rel - boundary) / 8;
+  off = (rel % 8) * (row_words / 8);
 }
 
 }  // namespace repro_torch

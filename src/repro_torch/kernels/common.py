@@ -146,6 +146,8 @@ ENTRIES = {
     "parity8_encode": (_P, _P, _I, _P),
     # data, parity, status, n_vectors, stream
     "parity8_check": (_P, _P, _P, _I, _P),
+    # storage, pages, data, n, W, num_rows, boundary, ebase, tables, stream
+    "parity8_write": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # storage, keys, slot_pages, queries, out, n, W, capacity, probe,
     # interwrap, num_rows, boundary, ebase, stream
     "hash_lookup_read": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -127,6 +127,8 @@ CALLS = {
     "parity8_encode": lambda: parity8_ops.encode(_meta(4, 8 * W)),
     "parity8_check": lambda: parity8_ops.check(_meta(4, 8 * W),
                                                _meta(4, W // 8)),
+    "parity8_write": lambda: parity8_ops.write(
+        _meta(ROWS, 9, W), _meta(5), _meta(5, 8 * W), 16),
     "hash_lookup_read": lambda: hash_ops.lookup_read(
         _meta(ROWS, 9, W), _meta(64), _meta(64), _meta(5), Layout.PARITY,
         ROWS, 16, 8),
@@ -143,6 +145,7 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     mixed_ops.read_correct(sto, torch.arange(4), Layout.INTERWRAP, ROWS, 16)
     migrate_ops.gather_encode(sto, torch.arange(4), ROWS)
     parity8_ops.check(data, parity8_ops.encode(data))
+    parity8_ops.write(sto.clone(), torch.arange(2), data, 16)
     hash_ops.lookup_read(sto, torch.arange(64, dtype=torch.int32),
                          torch.arange(64, dtype=torch.int32),
                          torch.arange(4, dtype=torch.int32),
@@ -168,6 +171,9 @@ STRIDED = {
     "parity8_encode": lambda: parity8_ops.encode(_strided(4, 8 * W)),
     "parity8_check": lambda: parity8_ops.check(
         _strided(4, 8 * W), torch.zeros((4, W // 8), dtype=torch.int32)),
+    "parity8_write": lambda: parity8_ops.write(
+        torch.zeros((ROWS, 9, W), dtype=torch.int32), torch.arange(2),
+        _strided(2, 8 * W), 16),
     "hash_lookup_read": lambda: hash_ops.lookup_read(
         torch.zeros((ROWS, 9, W), dtype=torch.int32),
         torch.zeros(64, dtype=torch.int32), torch.zeros(64, dtype=torch.int32),
@@ -217,7 +223,11 @@ def test_wrappers_marshal_the_declared_c_arguments(name, monkeypatch):
     if name == "hash_lookup_read":   # n, W, C, probe, interwrap, rows, b, ebase
         assert args[5:] == (5, W, 64, 8, 0, ROWS, 16,
                             extra_base_row(Layout.PARITY, 16, W))
-    if name.startswith("parity8"):         # 16-byte vectors of the data
+    if name in ("parity8_encode", "parity8_check"):   # 16-byte vectors
         assert args[-1] == 4 * 8 * W // 4
+    if name == "parity8_write":    # n, W, rows, boundary, ebase, tables
+        assert args[1].dtype == torch.int64    # the kernel reads int64 ids
+        assert args[3:] == (5, W, ROWS, 16,
+                            extra_base_row(Layout.PARITY, 16, W), 2)
     if name == "scrub_rows":               # packed code words, W
         assert args[3:] == (ROWS * W, W)

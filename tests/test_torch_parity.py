@@ -8,13 +8,16 @@ parity flips (status 3), masked and duplicate writes, ``migrate``, and
 ``repartition`` down and up with the surviving extra pages re-homed — run
 on a ``repro.core.pool`` pool and a ``repro_torch.core.pool`` pool (on the
 CPU) from the same numpy inputs, with the storage compared after every
-step, at every boundary.
+step, at every boundary. Last, the pool's one-pass write
+(``parity8_ops.write``) against the reference's ``write_pages_any``, that a
+pool write goes through it once, and that it refuses strided operands.
 """
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import parity8 as jparity
 from repro.core import pool as jp
@@ -209,3 +212,94 @@ def test_write_leaves_secded_pages_out_of_the_parity_tables():
     assert changed and all(r == int(prow[0]) and
                            int(off[0]) <= c < int(off[0]) + W // 8
                            for r, c in changed)
+
+
+# ---------------------------------------------------------------------------
+# The PARITY pool's one-pass write (parity8_ops.write)
+# ---------------------------------------------------------------------------
+
+
+def _filled(boundary: int):
+    """A reference and a port PARITY pool holding the same random pages."""
+    rng = np.random.default_rng(200 + boundary)
+    tw = Twin(boundary)
+    everything = list(range(tw.t.num_pages))
+    tw.write(everything, _pages(rng, len(everything)))
+    return tw, rng
+
+
+@pytest.mark.parametrize("boundary", [8, 16, 24, 32])
+def test_write_plain_version_matches_reference_write_pages_any(boundary):
+    """``parity8_ops.write`` on CPU tensors (its plain version) lands the
+    pages and their packed parity exactly as the reference's
+    ``write_pages_any`` does, for ids mixing CREAM, SECDED and extra pages,
+    then for a masked batch with duplicates after ``_landing_rows``. The
+    SECDED pages' code words are the caller's: the write leaves them as
+    they were, and everything else is bit-exact."""
+    tw, rng = _filled(boundary)
+    n_pages = tw.t.num_pages
+    ids = np.concatenate([np.arange(0, boundary, 3),          # CREAM
+                          np.arange(boundary, ROWS, 2),       # SECDED
+                          np.arange(ROWS, n_pages)])          # extra
+    ids = rng.permutation(ids)
+    dup = np.concatenate([ids[:5], ids[:3], [ids[0]]])
+    valid = np.ones(dup.size, bool)
+    valid[[1, -1]] = False                 # a masked row and a masked dup
+    for batch, mask in ((ids, None), (dup, valid)):
+        data = _pages(rng, batch.size)
+        land = tp._landing_rows(batch, mask)
+        before = tw.t.storage.clone()
+        want = np.asarray(jp.write_pages_any(
+            tw.j, jnp.asarray(batch), jnp.asarray(data),
+            valid=jnp.asarray(land)).storage)
+        got = parity8_ops.write(
+            tw.t.storage, torch.as_tensor(batch[land]),
+            common.to_words(data[land]), boundary)
+        assert got is tw.t.storage                 # in place
+        got = common.to_u32(got)
+        sec = np.unique(batch[land][(batch[land] >= boundary)
+                                    & (batch[land] < ROWS)])
+        np.testing.assert_array_equal(got[sec, 8],
+                                      common.to_u32(before)[sec, 8])
+        got[sec, 8] = want[sec, 8]
+        np.testing.assert_array_equal(got, want)
+        tw.j = dataclasses.replace(tw.j, storage=jnp.asarray(want))
+        tw.t.storage.copy_(common.to_words(want))
+
+
+def test_pool_write_is_one_parity8_write_and_no_standalone_encode(
+        monkeypatch):
+    """A PARITY-pool write of CREAM, SECDED and extra ids makes exactly one
+    ``parity8_ops.write`` call (one launch on the card) and never calls the
+    standalone encode; SECDED ids take their codec's encode once."""
+    calls = []
+    for name in ("write", "encode"):
+        fn = getattr(parity8_ops, name)
+        monkeypatch.setattr(
+            parity8_ops, name,
+            lambda *a, _n=name, _f=fn, **k: calls.append(_n) or _f(*a, **k))
+    sec_calls = []
+    enc = tp.secded_ops.encode
+    monkeypatch.setattr(tp.secded_ops, "encode",
+                        lambda d: sec_calls.append(d.shape[0]) or enc(d))
+    rng = np.random.default_rng(7)
+    t = tp.make_pool(ROWS, Layout.PARITY, boundary=16, row_words=W,
+                     device="cpu")
+    ids = [0, 20, ROWS, 9, 31]
+    t.write(ids, common.to_words(_pages(rng, len(ids))))
+    assert calls == ["write"]
+    assert sec_calls == [2]
+
+
+def test_write_refuses_a_strided_storage_view():
+    """The kernel takes a contiguous ``(R, 9, W)`` storage (a bank of a
+    sharded pool is a contiguous view of its tensor); a strided view is
+    refused on the CPU as it would be on the card."""
+    wide = torch.zeros((ROWS, 9, W + 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="contiguous"):
+        parity8_ops.write(wide[..., :W], torch.arange(2),
+                          torch.zeros((2, 8 * W), dtype=torch.int32), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        parity8_ops.write(torch.zeros((ROWS, 9, W), dtype=torch.int32),
+                          torch.arange(4)[::2],
+                          torch.zeros((2, 8 * W), dtype=torch.int32), 16)

@@ -216,12 +216,13 @@ def test_migrate_without_donation_keeps_input():
     assert torch.equal(moved.read([1]), t.read([0]))
 
 
-def test_parity_side_channel_and_daec_tier_are_not_ported_yet():
-    """Both are ported now: the PARITY side channel (held against the
-    reference in ``tests/test_torch_parity.py``) and the SEC-DAEC tier —
+def test_parity_pool_capacity_repartition_and_daec_tier_match_reference():
+    """A PARITY pool offers the reference's pages and moves its boundary;
     ``make_pool(daec_rows=...)`` and ``set_daec_rows`` on a PARITY pool
-    give the reference's storage (``tests/test_torch_daec.py`` has the
-    rest), and the boundary cannot move into the tier."""
+    give the reference's storage after a write of every page, and the
+    boundary cannot move into the tier (the PARITY side channel is held
+    against the reference in ``tests/test_torch_parity.py``, the DAEC tier
+    in ``tests/test_torch_daec.py``)."""
     pool = tp.make_pool(ROWS, tl.Layout.PARITY, boundary=16, row_words=W,
                         device="cpu")
     assert pool.num_pages == ROWS + tl.extra_page_count(tl.Layout.PARITY, 16,
