@@ -115,6 +115,43 @@ exits nonzero:
                   beside one step on a second stream, read back intact:
                   a warm-up, one timed against the median step, one
                   traced as in phase 5.
+ 21. regions-reference  examples/adaptive_reliability.py's 8 epochs (64/64/32
+                  rows at W = 256, its monitor settings, FaultModel seed 0 at
+                  2000 flips/GB a step on database from epoch 3) through a
+                  RegionManager on the card and one on the CPU in lockstep:
+                  the example's transitions (epoch 1 batch_kv and database
+                  SECDED -> PARITY, epoch 3 batch_kv -> NONE and database ->
+                  SECDED) and capacities (160, 172, 168 pages), identical
+                  capacity reports, evictions and storage every epoch;
+ 22. regions      the same regions at 65536/65536/16384 rows (1.36 GB on the
+                  card), seeded values in every page: the same transitions,
+                  capacity up then down, every page of batch_kv and
+                  hypervisor reads back its value, the scrub, parity8 check,
+                  parity8_write and InterWrap kernels launched; median
+                  seconds of scrub_all and of adapt an epoch;
+ 23. writeback    read_writeback on a SECDED pool, one with a DAEC tier, a
+                  PARITY pool and a 4-bank pool (64 rows of W = 2048) with
+                  planted single flips and one double: the first read
+                  reports them, the second only the double; data, status
+                  and storage equal the CPU port's after each read;
+ 24. launch-serve  repro_torch.launch.serve's main at --arch qwen3-0.6b
+                  --smoke --secded-rows 24 on the card and with --device
+                  cpu: equal JSON but for times (the reference's defaults
+                  deadlock under --smoke: 16 paid-tier SECDED rows hold no
+                  paid request's 18 pages), one mixed read a decode step;
+ 25. serve-starcoder2  starcoder2-7b from the registry at full width and
+                  depth in float32 (32 layers, d 4608, 36/4 heads of 128,
+                  GELU, vocab 49152; ~26.7 GiB of seeded weights) serving
+                  the serve requests on 968 rows (all KV fits in cream mode,
+                  not in secded): equal tokens in both, the first
+                  request's equal to a dense greedy decode by forward, more
+                  pages in cream, preemptions in secded, one mixed read a
+                  step, 256 pool pages held against the plain read; a
+                  decode-step profile as phase 5's;
+ 26. serve-musicgen  musicgen-large the same way in cream mode only (48
+                  layers, d 2048, 32/32 heads of 64, vocab 2048; ~9 GiB; 4
+                  KV tokens a page): every request's tokens equal a dense
+                  greedy decode.
 
 Phase 2 also holds parity8_write, the PARITY pool's one-pass write,
 bit-exact against its plain version and against the eager chain it
@@ -145,8 +182,9 @@ and flops over the card's dense bf16 tensor rate (SMs x 4096 x max SM
 clock), torch.matmul of the clean A beside it.
 
 Then the card's name and power limit, one JSON line listing every kernel
-with its launches on the serve, serve-shard, cache, campaign,
-prefill-long, seqcache and ecc-mlp phases and its phase-2 numbers,
+with its launches on the serve, serve-shard, cache, campaign, regions,
+writeback, launch-serve, starcoder2, musicgen, prefill-long, seqcache and
+ecc-mlp phases and its phase-2 numbers,
 and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 float32 products are full float32.
@@ -217,6 +255,12 @@ ECC_FLIP_SHARE = 0.01      # beats with one planted data-bit flip
 ECC_CODE_SHARE = 0.001     # beats with one planted code-bit flip
 ECC_DOUBLES = 8            # beats with two mantissa-bit flips (uncorrectable)
 ECC_TOKENS = (4096, 4)                 # the ecc-mlp path's token batches
+REGION_EPOCHS = 8          # examples/adaptive_reliability.py's epochs
+#: rows of the regions phase's batch_kv, database and hypervisor regions
+#: at the RegionManager's W = 256: 1.36 GB of storage on the card
+REGION_ROWS = (65536, 65536, 16384)
+WB_ROWS = 64               # rows of each write-back pool at W
+POOL_CHECK_PAGES = 256     # serve-pool pages held against the plain read
 #: dense bf16 tensor-core flops an SM does per clock on Hopper (NVIDIA's
 #: 989 TFLOP/s at 132 SMs and 1830 MHz); main() sets BF16_FLOPS_S
 BF16_FLOPS_PER_SM = 4096
@@ -950,14 +994,12 @@ def _kernel_class(name: str) -> str:
     return "elementwise/other"
 
 
-def phase_profile(torch, np, eng) -> dict:
+def decode_profile(torch, np, eng) -> dict:
     """Where a decode step's time goes: PROFILE_STEPS decode steps of the
-    CREAM engine with every slot busy, timed on the host clock without the
+    engine with every slot busy, timed on the host clock without the
     profiler, then again under ``torch.profiler`` for device kernel time by
-    kernel and by class, and the device's busy share of the window. Then
-    two schedule_migration calls of MIG_PAGES pages on this local pool,
-    each run beside one full-batch step and read back intact, the second
-    traced (stream_overlap)."""
+    kernel and by class, and the device's busy share of the window. The
+    B requests it submits are left running."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeRequest
@@ -984,6 +1026,18 @@ def phase_profile(torch, np, eng) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_ms = window()
+    return dict(steps=PROFILE_STEPS, batch=B,
+                step_ms=plain_ms / PROFILE_STEPS,
+                profiled_step_ms=prof_ms / PROFILE_STEPS,
+                **device_breakdown(prof, prof_ms, PROFILE_STEPS))
+
+
+def phase_profile(torch, np, eng) -> dict:
+    """:func:`decode_profile` of the CREAM engine, then two
+    schedule_migration calls of MIG_PAGES pages on this local pool, each
+    run beside one full-batch step and read back intact, the second traced
+    (stream_overlap)."""
+    prof = decode_profile(torch, np, eng)
     # a scheduled migration on this local pool beside a full-batch step:
     # one to warm the side stream up, one traced. The sessions parked by
     # serve-cream hold the rest of the pool's frames: close them first.
@@ -1006,12 +1060,8 @@ def phase_profile(torch, np, eng) -> dict:
                                     moving, profiled)
     while eng.sched.has_work():
         eng.poll()
-    return dict(steps=PROFILE_STEPS, batch=B,
-                step_ms=plain_ms / PROFILE_STEPS,
-                profiled_step_ms=prof_ms / PROFILE_STEPS,
-                **device_breakdown(prof, prof_ms, PROFILE_STEPS),
-                local_migration=dict(pages=MIG_PAGES, intact=True,
-                                     overlap=overlap))
+    return dict(prof, local_migration=dict(pages=MIG_PAGES, intact=True,
+                                           overlap=overlap))
 
 
 def device_breakdown(prof, window_ms: float, per: int = 1,
@@ -2496,6 +2546,487 @@ def phase_serve_shard(torch, np, tok_c) -> tuple[dict, dict]:
                 launches=launches), launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-26: regions, write-back reads, the launcher, full-width serving
+# ---------------------------------------------------------------------------
+
+
+#: examples/adaptive_reliability.py: per epoch its transitions and capacity
+#: (pages) at 64/64/32 rows; epochs not listed make no transition
+EXAMPLE_EPOCHS = {0: ([], 160),
+                  1: ([("batch_kv", "secded", "parity"),
+                       ("database", "secded", "parity")], 172),
+                  3: ([("batch_kv", "parity", "none"),
+                       ("database", "parity", "secded")], 168)}
+
+
+def region_manager(device, rows: tuple, only: str | None = None):
+    """The example's three regions (batch_kv, database, hypervisor) of
+    ``rows`` rows at the default W = 256 (with ``only``, that region
+    alone), its monitor settings, and its FaultModel over database's
+    storage shape."""
+    from repro_torch.core.injection import FaultModel
+    from repro_torch.core.monitor import MonitorConfig
+    from repro_torch.core.protection import Protection, RegionSpec
+    from repro_torch.core.regions import RegionManager
+    mgr = RegionManager(MonitorConfig(window=2, upgrade_threshold=5e-8,
+                                      downgrade_threshold=1e-9,
+                                      downgrade_patience=2), device=device)
+    for (name, floor), n in zip((("batch_kv", Protection.NONE),
+                                 ("database", Protection.PARITY),
+                                 ("hypervisor", Protection.SECDED)), rows):
+        if only not in (None, name):
+            continue
+        mgr.add_region(RegionSpec.make(name, Protection.SECDED, n,
+                                       min_protection=floor))
+    db = mgr.regions["database"].pool
+    faults = FaultModel.make(seed=0, soft_rate=2000.0, n_hard=0,
+                             shape=tuple(db.storage.shape))
+    return mgr, faults
+
+
+def region_epoch(torch, mgr, faults, epoch: int):
+    """One epoch of the example: database's DIMM flips bits from epoch 3,
+    then scrub_all and adapt -> (transitions, capacity, scrub_all seconds,
+    adapt seconds, the sweep's census by region)."""
+    db = mgr.regions["database"]
+    if epoch >= 3:
+        stor, _ = faults.step(db.pool.storage)
+        db.pool = dataclasses.replace(db.pool, storage=stor)
+    sync = torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    census = mgr.scrub_all()
+    sync()
+    t1 = time.perf_counter()
+    trans = [(n, a.value, b.value) for n, a, b in mgr.adapt()]
+    sync()
+    return trans, mgr.total_capacity_pages(), t1 - t0, \
+        time.perf_counter() - t1, census
+
+
+def check_example_epochs(epochs: list, where: str) -> None:
+    """The example's sequence: transitions at epochs 1 and 3 only, the
+    capacity at 0, 1 and 3 (rises, then falls) and unchanged between."""
+    for e, (trans, cap) in enumerate(epochs):
+        want, _ = EXAMPLE_EPOCHS.get(e, ([], None))
+        check(trans == want, f"{where} epoch {e}: transitions {trans}")
+        if e not in EXAMPLE_EPOCHS:
+            check(cap == epochs[e - 1][1], f"{where} epoch {e}: capacity")
+    caps = [cap for _, cap in epochs]
+    check(caps[0] < caps[1] and caps[3] < caps[1],
+          f"{where}: capacity {caps} does not rise, then fall")
+
+
+def phase_regions_reference(torch, np) -> dict:
+    """The example's 8 epochs at its own size through a RegionManager on
+    the card and one on the CPU in lockstep: the example's transitions and
+    capacities, identical capacity reports and bit-identical storage of
+    every region after every epoch."""
+    twins = {d: region_manager(d, (64, 64, 32)) for d in (DEVICE, "cpu")}
+    epochs = []
+    for epoch in range(REGION_EPOCHS):
+        out = {d: region_epoch(torch, *twins[d], epoch) for d in twins}
+        check(out[DEVICE][:2] == out["cpu"][:2],
+              f"epoch {epoch}: card {out[DEVICE][:2]} != CPU "
+              f"{out['cpu'][:2]}")
+        card, cpu = twins[DEVICE][0], twins["cpu"][0]
+        check(card.capacity_report() == cpu.capacity_report(),
+              f"epoch {epoch}: capacity reports differ")
+        for name, r in card.regions.items():
+            check(torch.equal(r.pool.storage.cpu(),
+                              cpu.regions[name].pool.storage),
+                  f"epoch {epoch}: {name}'s storage differs")
+            check(r.evictions == cpu.regions[name].evictions,
+                  f"epoch {epoch}: {name}'s evictions differ")
+        epochs.append(out[DEVICE][:2])
+    check_example_epochs(epochs, "regions-reference")
+    check([cap for _, cap in epochs][0::3] == [160, 168, 168],
+          f"capacities {[cap for _, cap in epochs]}")
+    report = twins[DEVICE][0].capacity_report()
+    check({n: (r["protection"], r["pages"]) for n, r in report.items()}
+          == {"batch_kv": ("none", 72), "database": ("secded", 64),
+              "hypervisor": ("secded", 32)}, f"final report {report}")
+    return dict(rows=[64, 64, 32], row_words=256,
+                epochs=[dict(epoch=e, transitions=t, capacity=c)
+                        for e, (t, c) in enumerate(epochs)],
+                final=report, card_equals_cpu=True)
+
+
+def phase_regions(torch, np) -> tuple[dict, dict]:
+    """The example at a host's size (REGION_ROWS at W = 256, 1.36 GB of
+    storage on the card): seeded values in every page, then 8 epochs of
+    scrub_all / adapt and the same transitions. A CPU twin of database
+    (the region that takes the flips, is scrubbed and repartitioned
+    SECDED -> PARITY -> SECDED) starts from a copy of its storage and runs
+    the same epochs: every census, transition, eviction and the storage
+    after every sweep and every adapt equal the card's bit for bit. Every
+    page of batch_kv and hypervisor not in their evictions reads back its
+    value."""
+    from repro_torch.core.protection import Protection
+    from repro_torch.kernels import common
+    mgr, faults = region_manager(DEVICE, REGION_ROWS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    values = {}
+    for name, r in mgr.regions.items():
+        values[name] = torch.randint(
+            -2**31, 2**31, (r.pool.num_pages, r.pool.page_words),
+            generator=gen, device=DEVICE, dtype=torch.int32)
+        r.pool = r.pool.write(np.arange(r.pool.num_pages), values[name])
+    storage = sum(r.pool.raw_bytes for r in mgr.regions.values())
+    twin, twin_faults = region_manager("cpu", REGION_ROWS, only="database")
+    db, tdb = mgr.regions["database"], twin.regions["database"]
+    tdb.pool = dataclasses.replace(tdb.pool, storage=db.pool.storage.cpu())
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    epochs, scrub_s, adapt_s, census, card_s = [], [], [], [], 0.0
+    for epoch in range(REGION_EPOCHS):
+        t0 = time.perf_counter()
+        trans, cap, s, a, stats = region_epoch(torch, mgr, faults, epoch)
+        card_s += time.perf_counter() - t0
+        epochs.append((trans, cap))
+        scrub_s.append(s)
+        adapt_s.append(a)
+        ttrans, _, _, _, tstats = region_epoch(torch, twin, twin_faults,
+                                               epoch)
+        check(stats["database"] == tstats["database"],
+              f"regions epoch {epoch}: database's census {stats['database']}"
+              f" != the CPU's {tstats['database']}")
+        check([t for t in trans if t[0] == "database"] == ttrans,
+              f"regions epoch {epoch}: database's transitions differ")
+        check(torch.equal(db.pool.storage.cpu(), tdb.pool.storage)
+              and db.pool.layout == tdb.pool.layout
+              and db.pool.boundary == tdb.pool.boundary
+              and db.evictions == tdb.evictions,
+              f"regions epoch {epoch}: database differs from the CPU's")
+        census.append(dataclasses.asdict(stats["database"]) | dict(
+            corrupt_rows=len(stats["database"].corrupt_rows)))
+    launches = dict(common.LAUNCHES)
+    del twin, tdb
+    check_example_epochs(epochs, "regions")
+    prot = {n: r.protection for n, r in mgr.regions.items()}
+    check(prot == {"batch_kv": Protection.NONE,
+                   "database": Protection.SECDED,
+                   "hypervisor": Protection.SECDED}, f"final {prot}")
+    check(sum(c["corrected_data"] + c["corrected_code"] for c in census) > 0
+          and sum(c["parity_corrupt_lines"] for c in census) > 0,
+          f"regions: database's census saw no flips {census}")
+    for k in ("scrub_rows", "parity8_check", "parity8_write",
+              "interwrap_scatter"):
+        check(launches.get(k, 0) > 0, f"regions: no {k} launch")
+    for name in ("batch_kv", "hypervisor"):
+        r = mgr.regions[name]
+        ids = np.setdiff1d(np.arange(values[name].shape[0]), r.evictions)
+        got = r.pool.read(ids)
+        check(torch.equal(got, values[name][torch.as_tensor(
+            ids, device=DEVICE)]), f"{name}: a page lost its value")
+        del got
+    return dict(rows=list(REGION_ROWS), row_words=256,
+                storage_bytes=storage,
+                epochs=[dict(epoch=e, transitions=t, capacity=c)
+                        for e, (t, c) in enumerate(epochs)],
+                database_census=census, database_equals_cpu=True,
+                final=mgr.capacity_report(),
+                scrub_all_s=scrub_s, adapt_s=adapt_s,
+                scrub_all_median_s=statistics.median(scrub_s),
+                adapt_median_s=statistics.median(adapt_s),
+                seconds=card_s, launches=launches), launches
+
+
+def writeback_pools(torch, np, device) -> dict:
+    """The write-back phase's four pools at W on ``device``: all-SECDED,
+    with a DAEC tier, PARITY at boundary R/2, and 4 banks; each filled with
+    the same seeded pages."""
+    from repro_torch.core.layouts import Layout
+    from repro_torch.core.pool import make_pool
+    from repro_torch.shard import make_sharded_pool
+    R = WB_ROWS
+    pools = {
+        "secded": make_pool(R, Layout.INTERWRAP, boundary=0, row_words=W,
+                            device=device),
+        "daec-tier": make_pool(R, Layout.INTERWRAP, boundary=0, row_words=W,
+                               daec_rows=R // 2, device=device),
+        "parity": make_pool(R, Layout.PARITY, boundary=R // 2, row_words=W,
+                            device=device),
+        "sharded": make_sharded_pool(R, Layout.INTERWRAP, R // 2,
+                                     num_shards=4, row_words=W,
+                                     device=device)}
+    rng = np.random.default_rng(SEED + 40)
+    for name, p in pools.items():
+        data = rng.integers(0, 2**32, (p.num_pages, p.page_words),
+                            dtype=np.uint32)
+        pools[name] = p.write(np.arange(p.num_pages), data)
+    return pools
+
+
+def wb_flip(np, pool, rows: list, double_row: int):
+    """Seeded single-bit flips, one in each protected page of ``rows``
+    (global page ids), and one same-word double (bits b, b + 2: one
+    codeword of either codec) in page ``double_row``: the flipped storage
+    as a numpy array."""
+    rng = np.random.default_rng(SEED + 41 + double_row)
+    sto = pool.storage.cpu().numpy().view(np.uint32).copy()
+    S = sto.shape[0] if sto.ndim == 4 else 1
+    flat = sto.reshape(-1, *sto.shape[-2:])
+    at = lambda p: p % S * (pool.num_rows // S) + p // S  # noqa: E731
+    for p in rows:
+        flat[at(p), rng.integers(0, 9), rng.integers(0, W)] ^= \
+            np.uint32(1 << int(rng.integers(0, 32)))
+    b = int(rng.integers(0, 30))
+    flat[at(double_row), 3, 7] ^= np.uint32((1 << b) | (1 << (b + 2)))
+    return sto
+
+
+def phase_writeback(torch, np) -> tuple[dict, dict]:
+    """read_writeback on the card and on the CPU over four pools with
+    planted flips: the first read's status shows them, the second is clean
+    but for the uncorrectable page, and data, status and storage equal the
+    CPU port's after each read. Then a VM made on the default card adopts
+    the local and the sharded pool, and reports as the CPU's does."""
+    from collections import Counter
+
+    from repro_torch.kernels import common
+    from repro_torch.vm.address_space import VirtualMemory
+    card, cpu = writeback_pools(torch, np, DEVICE), writeback_pools(
+        torch, np, "cpu")
+    R, out, launches = WB_ROWS, {}, {}
+    singles = {"secded": [3, 9, 20, 41], "daec-tier": [5, 40, 50, 63],
+               "parity": [33, 40, 47, 60], "sharded": [32, 37, 50, 63]}
+    for name, pool in card.items():
+        sto = wb_flip(np, pool, singles[name], double_row=R - 2)
+        words = common.to_words(sto)
+        card[name] = dataclasses.replace(pool, storage=words.to(DEVICE))
+        cpu[name] = dataclasses.replace(cpu[name], storage=words)
+        ids = np.random.default_rng(SEED + 42).permutation(pool.num_pages)
+        reads = []
+        torch.cuda.synchronize()
+        common.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            d, st, card[name] = card[name].read_writeback(ids)
+            cd, cst, cpu[name] = cpu[name].read_writeback(ids)
+            check(torch.equal(d.cpu(), cd) and torch.equal(st.cpu(), cst),
+                  f"{name}: card and CPU write-back reads differ")
+            check(torch.equal(card[name].storage.cpu(), cpu[name].storage),
+                  f"{name}: card and CPU storage differ")
+            reads.append(np.bincount(st.cpu().numpy(), minlength=4))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[name] = dict(common.LAUNCHES)
+        n1 = len(singles[name])
+        check(reads[0][1] + reads[0][2] == n1 and reads[0][3] == 1,
+              f"{name}: first read {reads[0].tolist()}")
+        check(reads[1][1] + reads[1][2] == 0 and reads[1][3] == reads[0][3],
+              f"{name}: second read {reads[1].tolist()}")
+        out[name] = dict(first=reads[0].tolist(), second=reads[1].tolist(),
+                         seconds=secs, launches=launches[name])
+    for name, k in (("secded", "secded_decode"), ("daec-tier", "daec_decode"),
+                    ("parity", "parity8_check"), ("sharded", "secded_decode")):
+        check(launches[name].get(k, 0) > 0, f"{name}: no {k} launch")
+    reports = {}
+    for where, pools in ((DEVICE, card), ("cpu", cpu)):
+        vm = VirtualMemory(row_words=W, device=where)   # no index: "cuda"
+        for name in ("secded", "sharded"):
+            vm.adopt_pool(name, pools[name])
+        reports[where] = vm.capacity_report()
+    check(reports[DEVICE] == reports["cpu"]
+          and reports[DEVICE]["sharded"]["pages"] == card["sharded"].num_pages,
+          f"adopt_pool: card {reports[DEVICE]} != CPU {reports['cpu']}")
+    merged = sum((Counter(l) for l in launches.values()), Counter())
+    return dict(rows=R, row_words=W, pools=out,
+                adopted=reports[DEVICE]), dict(merged)
+
+
+LAUNCH_ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--secded-rows", "24"]
+#: keys of the launcher's JSON that are times (not compared across devices)
+LAUNCH_TIMES = {"wall_s", "tokens_per_s", "p50_latency_ms", "p99_latency_ms"}
+
+
+def run_launcher(argv: list) -> dict:
+    """``repro_torch.launch.serve.main(argv)`` -> the JSON it prints."""
+    import io
+
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    return json.loads(buf.getvalue())
+
+
+def phase_launch_serve(torch) -> tuple[dict, dict]:
+    """The serving launcher at LAUNCH_ARGS on the card (its default
+    device) and with --device cpu: equal JSON on every key that is not a
+    time, one mixed read per decode step on the card."""
+    from repro_torch.kernels import common
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    card = run_launcher(LAUNCH_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    cpu = run_launcher(LAUNCH_ARGS + ["--device", "cpu"])
+    strip = lambda o: {k: v for k, v in o.items()  # noqa: E731
+                       if k not in LAUNCH_TIMES}
+    check(strip(card) == strip(cpu), f"launcher: card {card} != CPU {cpu}")
+    check(card["requests"] == 8 and card["tokens"] == 8 * 12,
+          f"launcher served {card}")
+    check(launches.get("mixed_read_correct", 0) == card["decode_steps"],
+          f"{launches.get('mixed_read_correct')} mixed reads for "
+          f"{card['decode_steps']} decode steps")
+    return dict(argv=LAUNCH_ARGS, card=card, cpu=cpu, equal=True,
+                launches=launches), launches
+
+
+def kv_rows(torch, cfg) -> int:
+    """Pool rows at W in which all N_REQ sessions' KV (PROMPT + MAX_NEW
+    tokens each) fits in CREAM mode (9/8 pages a row) but not in SECDED
+    mode: the least multiple of 8 rows above 15/16 of the pages needed."""
+    from repro_torch.models.transformer import num_attn_layers
+    from repro_torch.serve.paged_kv import token_words_for
+    per_page = 8 * W // token_words_for(cfg.num_kv_heads, cfg.head_dim_,
+                                        torch.float32)
+    need = N_REQ * num_attn_layers(cfg) * -(-(PROMPT + MAX_NEW) // per_page)
+    need += 1                               # the engine's scratch page
+    rows = -(-need * 15 // 128) * 8
+    check(rows < need <= rows * 9 // 8, f"{need} pages in {rows} rows")
+    return rows
+
+
+def dense_greedy(torch, np, model, reqs, n: int) -> list:
+    """``n`` greedy tokens of each request's prompt by repeated full
+    forwards of the dense model (no KV cache)."""
+    toks = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                           device=DEVICE)
+    out = []
+    for _ in range(n):
+        logits, _ = model.forward(toks, logits_mode="last")
+        nxt = logits.argmax(-1).to(toks.dtype)
+        out.append(nxt)
+        toks = torch.cat([toks, nxt[:, None]], dim=1)
+    return torch.stack(out, dim=1).tolist()
+
+
+def check_pool_read(torch, eng) -> int:
+    """POOL_CHECK_PAGES seeded pages (the last one too) of the engine's
+    pool through the mixed read on the card and its plain version on a CPU
+    copy: bit-exact. Launches made here are not counted. Returns the pages
+    read."""
+    import numpy as np
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.mixed import ops as mixed_ops
+    pool = eng.pool
+    counts = dict(common.LAUNCHES)
+    rng = np.random.default_rng(SEED + 50)
+    ids = torch.as_tensor(np.append(rng.choice(
+        pool.num_pages - 1, POOL_CHECK_PAGES, replace=False),
+        pool.num_pages - 1).astype(np.int32))
+    got = mixed_ops.read_correct(pool.storage, ids.to(DEVICE), pool.layout,
+                                 pool.num_rows, pool.boundary)
+    want = mixed_ops.read_correct(pool.storage.cpu(), ids, pool.layout,
+                                  pool.num_rows, pool.boundary)
+    check(torch.equal(got.cpu(), want),
+          "mixed read differs from its plain version on the serve pool")
+    common.LAUNCHES.clear()
+    common.LAUNCHES.update(counts)
+    return int(ids.numel())
+
+
+def serve_full_width(torch, np, arch: str, mode: str, rows: int):
+    """``arch`` from the registry at full width and depth in float32 (random
+    weights from SEED) serving the N_REQ requests at batch B, MAX_LEN, W:
+    (engine, tokens, stats, launches, seconds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    eng = Engine(cfg, max_batch=B, max_len=MAX_LEN, mode=mode, num_rows=rows,
+                 row_words=W, seed=SEED, device=DEVICE)
+    reqs = requests(np, cfg.vocab_size)
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    t0 = time.perf_counter()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    tokens = [r.generated for r in reqs]
+    check(all(len(t) == MAX_NEW for t in tokens), "requests unfinished")
+    check(all(0 <= x < cfg.vocab_size for t in tokens for x in t),
+          "token out of vocabulary")
+    check(launches.get("mixed_read_correct", 0) == eng.steps,
+          f"{launches.get('mixed_read_correct')} mixed reads for "
+          f"{eng.steps} decode steps")
+    return eng, reqs, stats, launches, wall
+
+
+def model_shape(cfg) -> dict:
+    return dict(layers=cfg.num_layers, d_model=cfg.d_model,
+                heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.head_dim_, d_ff=cfg.d_ff,
+                vocab=cfg.vocab_size, mlp=cfg.mlp_variant)
+
+
+def phase_serve_starcoder2(torch, np) -> tuple[dict, list]:
+    """starcoder2-7b at full width and depth in float32 (about 26.7 GiB of
+    weights): the serve requests in cream and secded mode on kv_rows rows,
+    equal tokens, more device pages in cream mode, preemptions in secded
+    mode, one mixed read per decode step; the first request's tokens equal
+    a dense greedy decode; a decode-step profile of the cream engine."""
+    from repro_torch.configs import get_config
+    cfg = get_config("starcoder2-7b")
+    rows = kv_rows(torch, cfg)
+    runs, launches, tokens = {}, [], {}
+    for mode in ("cream", "secded"):
+        eng, reqs, stats, l, wall = serve_full_width(
+            torch, np, "starcoder2-7b", mode, rows)
+        launches.append(l)
+        tokens[mode] = [r.generated for r in reqs]
+        runs[mode] = dict(summary(stats, l, wall),
+                          pool_pages_checked=check_pool_read(torch, eng))
+        if mode == "cream":
+            t0 = time.perf_counter()
+            dense = dense_greedy(torch, np, eng.model, reqs[:1], MAX_NEW)
+            runs["dense_s"] = time.perf_counter() - t0
+            check(dense[0] == tokens["cream"][0],
+                  "starcoder2-7b: served tokens differ from the dense decode")
+            runs["profile"] = decode_profile(torch, np, eng)
+            while eng.sched.has_work():
+                eng.poll()
+        del eng
+        torch.cuda.empty_cache()
+    check(tokens["cream"] == tokens["secded"],
+          "starcoder2-7b: secded tokens differ from cream tokens")
+    check(runs["cream"]["device_pages"] > runs["secded"]["device_pages"],
+          "cream mode must offer more device pages")
+    check(runs["secded"]["preemptions"] > 0, "secded pool should preempt")
+    check(launches[1].get("secded_encode", 0) > 0
+          and launches[1].get("secded_decode", 0) > 0,
+          "secded mode launched no SECDED codec")
+    return dict(model=model_shape(cfg), dtype="float32", rows=rows,
+                row_words=W, tokens_equal=True, dense_equal=True,
+                **runs), launches
+
+
+def phase_serve_musicgen(torch, np) -> tuple[dict, dict]:
+    """musicgen-large at full width and depth in float32 (about 9 GiB):
+    the serve requests in cream mode (head dim 64, MHA: 4 tokens a page),
+    every request's tokens equal to a dense greedy decode."""
+    from repro_torch.configs import get_config
+    cfg = get_config("musicgen-large")
+    rows = kv_rows(torch, cfg)
+    eng, reqs, stats, launches, wall = serve_full_width(
+        torch, np, "musicgen-large", "cream", rows)
+    dense = dense_greedy(torch, np, eng.model, reqs, MAX_NEW)
+    check(dense == [r.generated for r in reqs],
+          "musicgen-large: served tokens differ from the dense decode")
+    out = dict(model=model_shape(cfg), dtype="float32", rows=rows,
+               row_words=W, dense_equal=True, **summary(stats, launches,
+                                                        wall))
+    del eng
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def summary(stats: dict, launches: dict, wall: float) -> dict:
     keep = ("tokens", "tokens_per_s", "p50_latency_ms", "p99_latency_ms",
             "decode_steps", "device_pages", "preemptions", "restores",
@@ -2609,6 +3140,18 @@ def main() -> int:
     camp, l_cd = phase_campaign_daec(torch, np)
     phase("campaign-daec", camp)
     torch.cuda.empty_cache()
+    phase("regions-reference", phase_regions_reference(torch, np))
+    regions, l_rg = phase_regions(torch, np)
+    phase("regions", regions)
+    torch.cuda.empty_cache()
+    wb, l_wb = phase_writeback(torch, np)
+    phase("writeback", wb)
+    launch, l_ls = phase_launch_serve(torch)
+    phase("launch-serve", launch)
+    sc2, l_sc2 = phase_serve_starcoder2(torch, np)
+    phase("serve-starcoder2", sc2)
+    mg, l_mg = phase_serve_musicgen(torch, np)
+    phase("serve-musicgen", mg)
 
     from repro_torch.configs.qwen3_0_6b import CONFIG
     from repro_torch.models import build_model
@@ -2620,7 +3163,8 @@ def main() -> int:
     phase("seqcache", seq)
     del model
     main_paths = [l_c, l_s, l_r, l_ss, *l_z.values(), *l_w.values(), l_d,
-                  l_a, l_cs, l_cd, l_pl, *l_sq, l_em]
+                  l_a, l_cs, l_cd, l_rg, l_wb, l_ls, *l_sc2, l_mg, l_pl,
+                  *l_sq, l_em]
     # a PARITY pool's write is one parity8_write; the standalone encode
     # keeps the TPU kernel's contract and is on no main path
     check(not any(l.get("parity8_encode") for l in main_paths),

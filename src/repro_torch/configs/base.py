@@ -1,4 +1,5 @@
-"""Model configuration — the port of ``repro/configs/base.py`` without jax.
+"""Model and run configuration dataclasses and the input-shape registry —
+the port of ``repro/configs/base.py`` without jax.
 
 Same fields, defaults and :meth:`ModelConfig.smoke` reduction as the
 reference; ``activation_dtype`` maps the dtype name to a ``torch.dtype``.
@@ -98,3 +99,48 @@ class ModelConfig:
             ssm_dt_rank=8,
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # 'train' | 'prefill' | 'decode'
+
+
+# The assigned LM shape set (the same four for every arch; long_500k
+# applies only to sub-quadratic archs).
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
+    if shape.name == "long_500k":
+        return cfg.subquadratic
+    return True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatch: int | None = None          # gradient accumulation
+    remat: str = "none"                    # none | block | full
+    seed: int = 0
+    # CREAM integration
+    protect_opt_state: bool = True         # SECDED pool for optimizer moments
+    scrub_every: int = 50
+    checkpoint_every: int = 200
+    # distributed-optimization tricks
+    grad_compression: str = "none"         # none | int8 | topk
+    zero_sharding: bool = True             # shard opt state over 'data'

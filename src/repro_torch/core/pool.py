@@ -37,9 +37,11 @@ out). The port writes in place exactly where the reference donates the old
 state's storage — ``write`` and ``migrate`` (the reference's jitted entry
 points with ``donate_argnums=(0,)``) — so the returned state shares the
 input's storage and the input must be dropped, as every owner does. The
-non-donating functions (:func:`write_pages_any`, :func:`repartition`,
-``migrate(donate=False)``, ``scrub``) work on a copy and leave the input
-state valid, and so does :func:`set_daec_rows`.
+non-donating functions (:func:`write_pages_any`, :func:`write_page`,
+:func:`repartition`, ``migrate(donate=False)``, ``scrub``,
+``read_writeback``) work on a copy and leave the input state valid, and so
+does :func:`set_daec_rows`. :func:`migrate_pages` writes into its
+destination pool in place (the reference donates it).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core import secded
 from repro_torch.core.layouts import (CODE_LANE, DATA_LANES, DEFAULT_ROW_WORDS,
                                       GROUP_ROWS, LANES, REGION_SECDED, Layout,
                                       extra_page_count, page_coords,
@@ -100,6 +103,18 @@ class PoolState:
         return self.num_rows + self.num_extra_pages
 
     @property
+    def raw_bytes(self) -> int:
+        return self.storage.numel() * 4
+
+    @property
+    def effective_bytes(self) -> int:
+        return self.num_pages * self.page_bytes
+
+    def capacity_gain(self) -> float:
+        """Fraction of baseline (all-SECDED) capacity reclaimed."""
+        return self.num_extra_pages / self.num_rows
+
+    @property
     def boundary_step(self) -> int:
         """Boundary-register granularity (rows)."""
         return GROUP_ROWS
@@ -112,6 +127,12 @@ class PoolState:
         per-beat decode status: 0 clean, 1/2 corrected, 3 uncorrectable)."""
         data, st = read_pages_any_status(self, pages)
         return (data, st) if status else data
+
+    def read_writeback(self, pages):
+        """Write-back read: ``read(pages, status=True)`` whose corrected
+        beats are persisted to storage -> ``(data, status, new_state)``
+        (see :func:`read_pages_any_writeback`; ``self`` stays valid)."""
+        return read_pages_any_writeback(self, pages)
 
     def write(self, pages, data: torch.Tensor, *, valid=None) -> "PoolState":
         """Code-maintaining batch write; returns the new pool state.
@@ -131,6 +152,19 @@ class PoolState:
             self, storage=self.storage.clone())
         return _write_in_place(state, dst_pages,
                                read_pages_any(self, src_pages))
+
+    def streams(self, pages, data=None, *, valid=None):
+        """Bank-aligned stream access with ``(S, n)`` ids: reads ``(S, n,
+        page_words)`` with ``data=None``, else writes ``data`` ``(S, n,
+        page_words)`` (``valid`` optionally masks entries) and returns the
+        new state. On a local pool the stream axis is a batching
+        convention; a :class:`~repro_torch.shard.pool.ShardedPool` serves
+        each stream on its own bank."""
+        shape = tuple(pages.shape) if isinstance(pages, torch.Tensor) \
+            else np.shape(pages)
+        if data is None:
+            return self.read(pages).reshape(*shape, self.page_words)
+        return self.write(pages, data, valid=valid)
 
     def evict_prediction(self, new_boundary: int) -> list[int]:
         """Extra-page ids a move to ``new_boundary`` would evict."""
@@ -293,31 +327,46 @@ def read_pages_any_status(state: PoolState, pages
     reference decodes the whole batch with both codecs and selects, which
     gives the same bits).
     """
+    _, data, status, _ = _decoded_read(state, pages)
+    return data, status
+
+
+def _decoded_read(state: PoolState, pages):
+    """The read engine -> ``(pages, data, status, codes)``: the ids on the
+    pool's device, the corrected data, the per-page status and, when the
+    pool has protected rows, every page's corrected code lane (meaningful
+    for the protected pages only), else None."""
     ids = _host_ids(state, pages)
     pages = upload(ids, state.device)
     n = pages.shape[0]
     if n == 0:
-        return (torch.zeros((0, state.page_words), dtype=torch.int32,
+        return (pages,
+                torch.zeros((0, state.page_words), dtype=torch.int32,
                             device=state.device),
-                torch.zeros((0,), dtype=torch.int32, device=state.device))
+                torch.zeros((0,), dtype=torch.int32, device=state.device),
+                None)
     if _whole_interwrap(state):
-        return (interwrap_ops.gather(state.storage, pages, state.num_rows),
-                torch.zeros((n,), dtype=torch.int32, device=state.device))
+        return (pages,
+                interwrap_ops.gather(state.storage, pages, state.num_rows),
+                torch.zeros((n,), dtype=torch.int32, device=state.device),
+                None)
     rows, lanes, region = page_coords(state.layout, state.num_rows,
                                       state.boundary, pages, state.row_words)
     data = state.storage[rows, lanes, :].reshape(n, -1)
     is_sec = region == REGION_SECDED
     status = torch.zeros((n,), dtype=torch.int32, device=state.device)
+    fcodes = None
     if state.boundary < state.num_rows:       # pool has SECDED rows
         crow = torch.clamp(pages, state.boundary, state.num_rows - 1)
         codes = state.storage[crow, CODE_LANE, :]
-        fixed, _, st = secded_ops.decode(data, codes)
+        fixed, fcodes, st = secded_ops.decode(data, codes)
         pst = st.amax(dim=-1)
         daec = _daec_rows_of(state, ids)
         if daec is not None:                  # DAEC tier atop the region
-            dfixed, _, dst = daec_ops.decode(data[daec].contiguous(),
-                                             codes[daec].contiguous())
+            dfixed, dcodes, dst = daec_ops.decode(data[daec].contiguous(),
+                                                  codes[daec].contiguous())
             fixed[daec] = dfixed
+            fcodes[daec] = dcodes
             pst[daec] = dst.amax(dim=-1)
         data = torch.where(is_sec[:, None], fixed, data)
         status = torch.where(is_sec, pst, 0).to(torch.int32)
@@ -325,7 +374,7 @@ def read_pages_any_status(state: PoolState, pages
         packed = state.storage[_parity_index(state, pages)]
         pst = parity8_ops.check(data, packed).amax(dim=-1) * 3
         status = torch.where(is_sec, status, pst).to(torch.int32)
-    return data, status
+    return pages, data, status, fcodes
 
 
 def _daec_rows_of(state: PoolState, ids: np.ndarray) -> torch.Tensor | None:
@@ -352,6 +401,42 @@ def _parity_index(state: PoolState, pages: torch.Tensor) -> tuple:
 def read_pages_any(state: PoolState, pages) -> torch.Tensor:
     """Decode-corrected batch read -> ``(n, page_words)`` int32."""
     return read_pages_any_status(state, pages)[0]
+
+
+def read_pages_any_writeback(state: PoolState, pages
+                             ) -> tuple[torch.Tensor, torch.Tensor, PoolState]:
+    """Write-back read: the read pass that kills latent errors.
+
+    The gather and codecs of :func:`read_pages_any_status`, and then the
+    protected pages whose decode corrected a beat (worst status 1 or 2) get
+    their corrected data and code lane written back to storage; clean pages
+    and uncorrectable ones (which keep their evidence for the monitor)
+    leave storage as it was, so a second read of the same pages reports
+    clean for everything the first corrected. Returns ``(data, status,
+    new_state)``. Works on a copy, as the reference (which does not donate
+    here): ``state`` stays valid.
+    """
+    copy = dataclasses.replace(state, storage=state.storage.clone())
+    data, status = _writeback_in_place(copy, pages)
+    return data, status, copy
+
+
+def _writeback_in_place(state: PoolState, pages
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`read_pages_any_writeback` on ``state.storage`` in place ->
+    ``(data, status)``. Duplicate ids write the same corrected page."""
+    pages, data, status, codes = _decoded_read(state, pages)
+    if codes is not None:
+        corrected = (status == secded.CORRECTED_DATA) \
+            | (status == secded.CORRECTED_CODE)
+        wb = torch.nonzero(corrected & (pages >= state.boundary)
+                           & (pages < state.num_rows))[:, 0]
+        if wb.numel():
+            rows = pages[wb]
+            state.storage[rows, :DATA_LANES, :] = data[wb].reshape(
+                -1, DATA_LANES, state.row_words)
+            state.storage[rows, CODE_LANE, :] = codes[wb]
+    return data, status
 
 
 def _write_in_place(state: PoolState, pages, data, valid=None) -> PoolState:
@@ -407,6 +492,31 @@ def write_pages_any(state: PoolState, pages, data,
     """
     copy = dataclasses.replace(state, storage=state.storage.clone())
     return _write_in_place(copy, pages, data, valid)
+
+
+def read_page(state: PoolState, page: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Read one page -> ``(data (page_words,) int32, status)``, ``status``
+    a 0-d int32 tensor: the page's worst beat or line status (0 clean, 1/2
+    corrected, 3 detected-uncorrectable). Corrections are reported, not
+    persisted (see ``scrub`` and :func:`read_pages_any_writeback`)."""
+    data, status = read_pages_any_status(state, [page])
+    return data[0], status[0]
+
+
+def write_page(state: PoolState, page: int, data) -> PoolState:
+    """Write one page, maintaining codes for protected pages. Functional,
+    as in the reference: works on a copy and leaves ``state`` valid."""
+    return write_pages_any(state, [page], data)
+
+
+def migrate_pages(src: PoolState, src_pages, dst: PoolState,
+                  dst_pages) -> PoolState:
+    """Live migration between pools: a decode-corrected read of
+    ``src_pages`` from ``src`` and a code-maintaining write of the pages
+    to ``dst_pages`` of ``dst``, in place (the reference donates ``dst``'s
+    storage): drop the input ``dst``."""
+    return _write_in_place(dst, dst_pages, read_pages_any(src, src_pages))
 
 
 def set_daec_rows(state: PoolState, daec_rows: int) -> PoolState:

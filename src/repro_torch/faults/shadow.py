@@ -33,9 +33,7 @@ migration engine's gather/re-encode and coded-row scatter — check
 what it read, so corruption that slips through a migration read is
 counted as silent at that read and then becomes the new believed content.
 
-Not here yet: ``read_writeback`` and ``streams`` (they wait for
-``pool.read_writeback`` / ``pool.streams``, ROADMAP queue 1 item 3) and
-the reference's deprecated access shims.
+Not here yet: the reference's deprecated access shims.
 """
 from __future__ import annotations
 
@@ -46,7 +44,8 @@ import torch
 
 from repro_torch.core import secded
 from repro_torch.core.layouts import extra_page_count
-from repro_torch.core.pool import _as_words, _host_ids, _landing_rows
+from repro_torch.core.pool import (PoolState, _as_words, _host_ids,
+                                   _landing_rows)
 from repro_torch.kernels.common import upload
 from repro_torch.vm.address_space import frame_classes
 
@@ -132,6 +131,9 @@ class ShadowedPool:
     def has_parity(self) -> bool:
         return self.inner.has_parity
 
+    def capacity_gain(self) -> float:
+        return self.inner.capacity_gain()
+
     @property
     def storage(self) -> torch.Tensor:
         return self.inner.storage
@@ -191,6 +193,13 @@ class ShadowedPool:
         self._classify(_host_ids(self.inner, pages), data, st)
         return (data, st) if status else data
 
+    def read_writeback(self, pages):
+        # storage is repaired toward the stored codewords; the logical
+        # truth, and so the shadow, is unchanged and the oracle applies
+        data, st, self.inner = self.inner.read_writeback(pages)
+        self._classify(_host_ids(self.inner, pages), data, st)
+        return data, st, self
+
     def write(self, pages, data, *, valid=None) -> "ShadowedPool":
         ids = _host_ids(self.inner, pages)
         words = _as_words(self.inner, data, ids.shape[0])
@@ -210,6 +219,10 @@ class ShadowedPool:
         # migration reads must hit the oracle (and what they surface becomes
         # the new believed content — the caveat above)
         return self.write(dst_pages, self.read(src_pages))
+
+    # ``(S, n)`` streams as a batching convention over the classified read
+    # and the shadowed write, as on a local pool
+    streams = PoolState.streams
 
     # -- control plane -------------------------------------------------------
     def evict_prediction(self, new_boundary: int) -> list[int]:

@@ -37,15 +37,20 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless asked otherwise.
 
     Never falls back to the CPU on its own — without a GPU the caller must
-    pass ``device="cpu"`` explicitly.
+    pass ``device="cpu"`` explicitly; asking for ``cuda`` without one
+    raises the same way. A CUDA device comes back with its index (``cuda``
+    becomes ``cuda:<current>``), so it compares equal to the ``.device``
+    of the tensors made on it.
     """
-    if device is None:
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device available; pass device='cpu' to run the "
                 "plain PyTorch versions on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layouts import Layout
 from repro_torch.core.pool import PoolState
-from repro_torch.kernels.common import upload
+from repro_torch.kernels.common import resolve_device, upload
 from repro_torch.kernels.mixed import ops as mixed_ops
 from repro_torch.models import build_model
 from repro_torch.models import transformer
@@ -73,7 +73,7 @@ class Engine:
             vm.add_pool(pool, num_rows, Layout.INTERWRAP,
                         boundary=num_rows - secded_rows
                         if mode == "cream" else 0)
-        elif device is not None and torch.device(device) != vm.device:
+        elif device is not None and resolve_device(device) != vm.device:
             raise ValueError(f"vm lives on {vm.device}, not {device}")
         self.cfg = cfg
         self.vm = vm
@@ -82,12 +82,13 @@ class Engine:
         self.mode = mode
         self.max_batch = max_batch
         self.max_len = max_len
+        # refuse a KV dtype the pool cannot page before building weights
+        token_words = token_words_for(cfg.num_kv_heads, cfg.head_dim_,
+                                      cfg.activation_dtype)
         self.model = build_model(cfg, seed=seed, device=self.device)
         self.n_layers = transformer.num_attn_layers(cfg)
         self.kv = PagedKV(
-            vm, pool, n_layers=self.n_layers,
-            token_words=token_words_for(cfg.num_kv_heads, cfg.head_dim_,
-                                        cfg.activation_dtype),
+            vm, pool, n_layers=self.n_layers, token_words=token_words,
             max_seqs=max_sessions, max_tokens=max_len)
         self.sched = Scheduler(self.kv, max_batch, token_limit=max_len)
         # host-side per-slot decode registers

@@ -19,6 +19,8 @@ as a contiguous view, so every local verb and kernel of
     status reads, and every read of a pool with a SEC-DAEC tier (the fused
     read corrects with SECDED only), go through the local engine bank by
     bank and are assembled in batch order.
+  * :meth:`ShardedPool.read_writeback` runs the local write-back read
+    bank by bank on views of a copy of the storage;
   * :meth:`ShardedPool.write` lands the last valid row of each page
     (:func:`repro_torch.core.pool._landing_rows` on the global batch),
     routes, and writes each bank's pages in place.
@@ -32,7 +34,8 @@ as a contiguous view, so every local verb and kernel of
 
 Writes and migrations update the storage in place (the reference donates
 it); :func:`repartition`, :func:`set_daec_rows`, :func:`scrub` and
-``migrate(donate=False)`` work on copies and leave the input valid.
+``migrate(donate=False)`` and ``read_writeback`` work on copies and
+leave the input valid.
 """
 from __future__ import annotations
 
@@ -171,6 +174,16 @@ class ShardedPool:
                     words[upload(sel, self.device)])
         return self
 
+    def read_writeback(self, pages):
+        """Write-back read of global page ids (see
+        :meth:`repro_torch.core.pool.PoolState.read_writeback`): each bank
+        persists the corrections of the pages it owns -> ``(data, status,
+        new_pool)``. Works on a copy: this pool stays valid."""
+        ids = pool_lib._host_ids(self, pages)
+        copy = dataclasses.replace(self, storage=self.storage.clone())
+        data, status = _read_status(copy, ids, pool_lib._writeback_in_place)
+        return data, status, copy
+
     def migrate(self, src_pages, dst_pages, *,
                 donate: bool = True) -> "ShardedPool":
         """Relocate pages ``src -> dst`` across banks (see
@@ -232,10 +245,13 @@ def make_sharded_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
                        daec_rows // num_shards)
 
 
-def _read_status(pool: ShardedPool, ids: np.ndarray
+def _read_status(pool: ShardedPool, ids: np.ndarray,
+                 read=pool_lib.read_pages_any_status
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bank-by-bank read with status through the local engine (DAEC and
-    PARITY aware), assembled in batch order."""
+    PARITY aware), assembled in batch order. ``read(bank, local_ids)``
+    reads one bank: the status read, or the write-back read that repairs
+    the bank's view of the storage in place."""
     n = ids.size
     data = torch.empty((n, pool.page_words), dtype=torch.int32,
                        device=pool.device)
@@ -245,8 +261,7 @@ def _read_status(pool: ShardedPool, ids: np.ndarray
         sel = np.flatnonzero(shard == s)
         if sel.size:
             idx = upload(sel, pool.device)
-            data[idx], status[idx] = pool_lib.read_pages_any_status(
-                pool.bank(s), local[sel])
+            data[idx], status[idx] = read(pool.bank(s), local[sel])
     return data, status
 
 

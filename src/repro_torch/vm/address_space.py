@@ -213,6 +213,17 @@ class VirtualMemory:
         self.allocators[name] = FrameAllocator(state)
         return state
 
+    def adopt_pool(self, name: str, state) -> None:
+        """Bring an existing pool (local or sharded) under VM management,
+        every frame free. It must live on this VM's device."""
+        if state.row_words != self.row_words:
+            raise ValueError("row_words mismatch")
+        if resolve_device(state.device) != self.device:
+            raise ValueError(f"pool lives on {state.device}, the VM on "
+                             f"{self.device}")
+        self.pools[name] = state
+        self.allocators[name] = FrameAllocator(state)
+
     def create_tenant(self, name: str,
                       default_reliability: Protection = Protection.NONE,
                       segments: dict[str, Protection] | None = None
@@ -245,6 +256,26 @@ class VirtualMemory:
     def utilisation(self, pool: str | None = None) -> float:
         cap = self.device_capacity_pages(pool)
         return self.used_device_pages(pool) / cap if cap else 0.0
+
+    def capacity_report(self) -> dict[str, dict]:
+        """Per pool: geometry, pages, used and free frames by class, and
+        the capacity gain; plus the host tier's page count."""
+        out = {}
+        for name, state in self.pools.items():
+            alloc = self.allocators[name]
+            out[name] = {
+                "layout": state.layout.value,
+                "rows": state.num_rows,
+                "boundary": state.boundary,
+                "daec_rows": state.daec_rows,
+                "pages": state.num_pages,
+                "extra_pages": state.num_extra_pages,
+                "used": alloc.used,
+                "free": {p.value: len(lst) for p, lst in alloc.free.items()},
+                "gain": state.capacity_gain(),
+            }
+        out["host_swap_pages"] = len(self.swap)
+        return out
 
     # -- translation ---------------------------------------------------------
     def translate(self, tenant: str, vpn: int) -> PTE:

@@ -44,6 +44,14 @@ class MigrationStats:
     kernel_batches: int = 0
     seconds: float = 0.0
 
+    @property
+    def throughput_pages_s(self) -> float:
+        return self.pages_moved / self.seconds if self.seconds else 0.0
+
+    @property
+    def throughput_mb_s(self) -> float:
+        return self.bytes_moved / 2**20 / self.seconds if self.seconds else 0.0
+
 
 def _scatter_coded_rows(storage: torch.Tensor, rows: torch.Tensor,
                         data: torch.Tensor, codes: torch.Tensor) -> None:

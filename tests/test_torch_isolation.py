@@ -14,6 +14,8 @@ import torch
 import repro_torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pool import make_pool
+from repro_torch.core.regions import RegionManager
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.objcache.hash_index import make_index
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, SequenceCache
@@ -50,7 +52,11 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.serve.kv_cache", "repro_torch.shard.pool",
             "repro_torch.shard.router",
             "repro_torch.kernels.ecc_matmul.ops",
-            "repro_torch.kernels.ecc_matmul.ref"} <= set(names)
+            "repro_torch.kernels.ecc_matmul.ref",
+            "repro_torch.core.regions", "repro_torch.configs.registry",
+            "repro_torch.configs.starcoder2_7b",
+            "repro_torch.configs.musicgen_large",
+            "repro_torch.launch.serve"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -87,13 +93,34 @@ def test_forbidden_pattern_catches_what_it_must():
     lambda: build_model(CFG, attn_impl="flash"),
     lambda: SequenceCache(16, row_words=64),
     lambda: make_sharded_pool(32, num_shards=4),
+    lambda: RegionManager(),
+    lambda: serve_main(["--arch", "qwen3-0.6b", "--smoke"]),
 ], ids=["Engine", "VirtualMemory", "make_pool", "make_index", "build_model",
-        "SequenceCache", "make_sharded_pool"])
+        "SequenceCache", "make_sharded_pool", "RegionManager",
+        "launch.serve"])
 def test_entry_points_without_cuda_raise(entry, monkeypatch):
     """No device and no CUDA: raise, never fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+
+
+def test_serve_launcher_cli_imports_no_jax():
+    """``python -m repro_torch.launch.serve --help`` with ``jax`` and the
+    reference package made unimportable: the CLI's import chain needs
+    neither."""
+    code = ("import runpy, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None   # any import of it now raises\n"
+            "sys.argv = ['repro_torch.launch.serve', '--help']\n"
+            "runpy.run_module('repro_torch.launch.serve', "
+            "run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=_env(), cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for flag in ("--arch", "--smoke", "--pool-mode", "--secded-rows",
+                 "--device"):
+        assert flag in proc.stdout
 
 
 def test_chip_smoke_without_cuda_exits_nonzero_and_prints_no_result():
