@@ -147,11 +147,36 @@ exits nonzero:
                   request's equal to a dense greedy decode by forward, more
                   pages in cream, preemptions in secded, one mixed read a
                   step, 256 pool pages held against the plain read; a
-                  decode-step profile as phase 5's;
+                  decode-step profile as phase 5's and the step's host
+                  time split by span (as phase 27's);
  26. serve-musicgen  musicgen-large the same way in cream mode only (48
                   layers, d 2048, 32/32 heads of 64, vocab 2048; ~9 GiB; 4
                   KV tokens a page): every request's tokens equal a dense
                   greedy decode.
+ 27. telemetry    (run after phase 7) serve-cream and serve-secded again
+                  with the metrics, tracing and CREAM-Lens planes on: the
+                  planes-off tokens; the decode-step, prefill and
+                  tokens-by-tier counters equal to the engine's own counts;
+                  every (class, status) read-status series; the capacity
+                  gauges and the SLO tracker's entry equal to the pool's
+                  capacity_report; the step's spans, one gather span a
+                  decode step, and a Perfetto export that loads; one
+                  decode gather a step in CREAM-Lens, and exactly one
+                  decode gather and one scatter a step over a full batch.
+                  On the cream engine one full-batch step with planes
+                  off and one with metrics on, their operations counted
+                  at PyTorch's dispatcher: metrics on must add exactly
+                  the status read's zeroing, the count reduction and the
+                  counts' copy (the eight FOLD_OPS device operations)
+                  and two views, and make one mixed-read launch; then,
+                  printed and not gated, the step's host time split by
+                  its blocking spans (medians of PROFILE_STEPS steps) and
+                  the planes' overhead (interleaved windows off / metrics
+                  / all: medians and spread). On the secded engine single-bit
+                  flips in 16 pages the next step reads: the folded
+                  secded/corrected count equals the card's status read of
+                  the same ids; then one double-bit flip: one
+                  uncorrectable, and the secded SLO breached.
 
 Phase 2 also holds parity8_write, the PARITY pool's one-pass write,
 bit-exact against its plain version and against the eager chain it
@@ -169,6 +194,10 @@ a seqcache pool, and flash attention within 2e-5 of the output's scale at
 the prefill shape (and on a ragged S, in float32 and bfloat16); their
 bounds are bytes over 3.35 TB/s and, for flash attention, its flops over
 the card's float32 FMA rate (SMs x 128 x 2 x max SM clock). It holds the
+mixed read's status output (the metrics-on decode gather: the page's
+worst SECDED status from the same launch) on the mixed pool with its
+planted flips, data and status bit-exact, every status present, timed
+with the wrapper's zero fill beside the data-only read. It holds the
 router-fused mixed read bit-exact on every page id of the serve-shard
 pool and of a 16384-row pool in 8 banks, with planted flips; and
 ecc_matmul at qwen3-0.6b's MLP shapes over 4096 tokens and 4, a ragged
@@ -183,8 +212,8 @@ clock), torch.matmul of the clean A beside it.
 
 Then the card's name and power limit, one JSON line listing every kernel
 with its launches on the serve, serve-shard, cache, campaign, regions,
-writeback, launch-serve, starcoder2, musicgen, prefill-long, seqcache and
-ecc-mlp phases and its phase-2 numbers,
+writeback, launch-serve, starcoder2, musicgen, prefill-long, seqcache,
+ecc-mlp and telemetry phases and its phase-2 numbers,
 and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 float32 products are full float32.
@@ -555,6 +584,24 @@ def phase_kernels(torch, np, dev) -> dict:
     # each input read once: distinct pages (and their codes) in, n out
     u_ids = torch.unique(ids)
     n_sec = int(((u_ids >= mixed_boundary) & (u_ids < NUM_ROWS)).sum())
+    # the status output (the metrics-on decode gather) on the same pool:
+    # data and per-page worst status bit-exact, every status present
+    st_k = mixed_ops.read_correct(*mix_args, status=True)
+    st_p = mixed_ref.read_correct(*mix_args, status=True)
+    torch.cuda.synchronize()
+    st_counts = torch.bincount(st_k[1], minlength=4).tolist()
+    check(all(st_counts), f"mixed read statuses {st_counts}")
+    status_variant = dict(
+        max_abs_err=max_abs_err(st_k, st_p), status_pages=st_counts,
+        ms=median_ms(lambda: mixed_ops.read_correct(*mix_args, status=True),
+                     20),
+        plain_ms=median_ms(
+            lambda: mixed_ref.read_correct(*mix_args, status=True), 3),
+        data_only_ms=mixed_ms,
+        bound=bound_ms(4 * ((u_ids.numel() + n) * D + 2 * n + n_sec * W),
+                       48 * n_sec * D // 2))
+    check(status_variant["max_abs_err"] == 0,
+          "mixed read with status disagrees with its plain version")
 
     cream = words(NUM_ROWS, LANES, W)
     cids = torch.as_tensor(rng.integers(
@@ -578,7 +625,8 @@ def phase_kernels(torch, np, dev) -> dict:
                         pages_read=int(u_ids.numel()), ms=mixed_ms,
                         bound_ms=bound_ms(
                             4 * ((u_ids.numel() + n) * D + n + n_sec * W),
-                            48 * n_sec * D // 2)[0]))
+                            48 * n_sec * D // 2)[0]),
+        status_variant=status_variant)
 
     # -- migrate gather/re-encode over the CREAM pool ------------------------
     mig_k = migrate_ops.gather_encode(cream, cids, NUM_ROWS)
@@ -1062,6 +1110,408 @@ def phase_profile(torch, np, eng) -> dict:
         eng.poll()
     return dict(prof, local_migration=dict(pages=MIG_PAGES, intact=True,
                                            overlap=overlap))
+
+
+# ---------------------------------------------------------------------------
+# The telemetry phase
+# ---------------------------------------------------------------------------
+
+#: spans of one decode step, in the order the step opens them
+STEP_SPANS = ("serve.router.dispatch", "engine.step.gather",
+              "engine.step.compute", "engine.step.scatter")
+OVERHEAD_REPS, OVERHEAD_WINDOW = 5, 4   # interleaved windows of steps
+FLIP_PAGES = 16            # SECDED pages given a single-bit flip
+#: the device operations the metrics plane adds to a decode step: the
+#: status output's zero fill (the mixed read's wrapper), the reduction
+#: (engine._status_counts) and the fold's copy of the counts to the host
+FOLD_OPS = ("status zero fill", "row*4 + status add", "histogram zero fill",
+            "ones_like fill", "index_add_", "corrected-column add",
+            "stack (cat)", "counts copy to the host")
+
+
+def set_planes(metrics: bool = False, tracing: bool = False,
+               memprof: bool = False) -> None:
+    from repro_torch.obs import memprof as obs_memprof
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import tracing as obs_tracing
+    obs_metrics.enable(metrics)
+    obs_tracing.enable(tracing)
+    obs_memprof.enable(memprof)
+
+
+def reset_planes() -> None:
+    """Every plane off and empty, the SLO tracker too."""
+    from repro_torch import obs
+    set_planes()
+    obs.metrics.REGISTRY.clear()
+    obs.tracing.reset()
+    obs.memprof.clear()
+    obs.slo.TRACKER.reset()
+
+
+def full_batch(np, eng, max_new: int, tag: str) -> None:
+    """Close the parked sessions (their frames go back to the pool, so the
+    batch's steps preempt nothing), submit B seeded requests of
+    ``max_new`` tokens and poll until all B slots decode."""
+    from repro_torch.serve import ServeRequest
+    for seq_id, sess in list(eng.sched.sessions.items()):
+        if sess.slot is None:
+            eng.sched.close_session(seq_id)
+    rng = np.random.default_rng(SEED + 3)
+    for i in range(B):
+        eng.submit(ServeRequest(
+            f"{tag}{i}",
+            rng.integers(0, eng.cfg.vocab_size, PROMPT).astype(np.int32),
+            max_new))
+    for _ in range(2):
+        eng.poll()
+    check(len(eng.sched.active_slots()) == B, f"{tag} batch is not full")
+
+
+def drain(eng) -> None:
+    while eng.sched.has_work():
+        eng.poll()
+
+
+def span_split(torch, np, eng, steps: int = PROFILE_STEPS) -> dict:
+    """The host time of a full-batch decode step split by its spans: the
+    median over ``steps`` traced steps of each span's duration and of the
+    step's host-clock time, and the rest of the step (scheduling, token
+    bookkeeping). The spans block (CUDA events), so a traced step is not
+    the untraced step: its phases run one after another."""
+    import statistics
+
+    from repro_torch.obs import tracing
+    full_batch(np, eng, steps + 6, "split")
+    tracing.reset()
+    set_planes(tracing=True)
+    step_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.poll()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    set_planes()
+    per = {name: [e["dur"] / 1e3 for e in tracing.TRACER.events
+                  if e["name"] == name] for name in STEP_SPANS}
+    check(all(len(v) == steps for v in per.values()),
+          f"span counts {[len(v) for v in per.values()]} for {steps} steps")
+    med = {name: statistics.median(v) for name, v in per.items()}
+    step = statistics.median(step_ms)
+    drain(eng)
+    tracing.reset()
+    return dict(steps=steps, step_ms=step, span_ms=med,
+                rest_ms=step - sum(med.values()))
+
+
+def plane_overhead(torch, np, eng) -> dict:
+    """Host-clock ms a full-batch decode step takes with every plane off,
+    metrics on, and every plane on: OVERHEAD_REPS interleaved windows of
+    OVERHEAD_WINDOW steps each (off, metrics, all, in turn), the median
+    of each and its spread (min, max), and the medians' ratios."""
+    import statistics
+    full_batch(np, eng, 3 * OVERHEAD_REPS * OVERHEAD_WINDOW + 6, "overhead")
+    runs = {"off": [], "metrics": [], "all": []}
+    for _ in range(OVERHEAD_REPS):
+        for name, planes in (("off", {}), ("metrics", dict(metrics=True)),
+                             ("all", dict(metrics=True, tracing=True,
+                                          memprof=True))):
+            set_planes(**planes)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OVERHEAD_WINDOW):
+                eng.poll()
+            torch.cuda.synchronize()
+            runs[name].append((time.perf_counter() - t0) * 1e3
+                              / OVERHEAD_WINDOW)
+    set_planes()
+    drain(eng)
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    return dict(window_steps=OVERHEAD_WINDOW, reps=OVERHEAD_REPS,
+                step_ms=med, spread_ms={k: [min(v), max(v)]
+                                        for k, v in runs.items()},
+                ratio={k: med[k] / med["off"] for k in ("metrics", "all")})
+
+
+def telemetry_serve(torch, np, mode: str, tok_c):
+    """The serve requests at qwen3-0.6b full width (float32) with every
+    plane on: the engine, its counts and the checks of the telemetry
+    phase (tokens, counters, read-status series, capacity, spans, the
+    Perfetto export, CREAM-Lens records)."""
+    from collections import Counter
+
+    from repro_torch import obs
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.kernels import common
+    from repro_torch.serve import Engine
+    m = obs.metrics
+    reset_planes()
+    set_planes(metrics=True, tracing=True, memprof=True)
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    eng = Engine(cfg, max_batch=B, max_len=MAX_LEN, mode=mode,
+                 num_rows=NUM_ROWS, row_words=W, seed=SEED, device=DEVICE)
+    prefills = Counter()
+    impl = eng._do_prefill_impl
+
+    def counted(slot, req, sess):
+        prefills[req.tier] += 1
+        impl(slot, req, sess)
+
+    eng._do_prefill_impl = counted
+    reqs = requests(np, cfg.vocab_size)
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    check([r.generated for r in reqs] == tok_c,
+          f"{mode}: tokens with every plane on differ from planes off")
+    check(launches.get("mixed_read_correct", 0) == eng.steps,
+          f"{mode}: {launches.get('mixed_read_correct')} mixed reads for "
+          f"{eng.steps} decode steps")
+    # counters against the engine's own counts
+    check(m.REGISTRY.value(m.NAME_DECODE_STEPS) == eng.steps,
+          f"{mode}: decode-step counter")
+    check(m.REGISTRY.value(m.NAME_PREFILLS) == sum(prefills.values()),
+          f"{mode}: prefill counter")
+    decoded = Counter()
+    for r in reqs:
+        decoded[r.tier] += len(r.generated)
+    decoded.subtract(prefills)
+    for tier, n in decoded.items():
+        check(m.REGISTRY.value(m.NAME_TOKENS_DECODED, tier=tier) == n,
+              f"{mode}: tokens decoded on tier {tier}")
+    snap = m.collect()
+    series = {(r["labels"]["cls"], r["labels"]["status"])
+              for r in snap[m.NAME_READ_STATUS]["series"]}
+    check(series == {(c, s) for c in m.FOLD_CLASSES
+                     for s in ("corrected", "uncorrectable")},
+          f"{mode}: read-status series {sorted(series)}")
+    # capacity gauges and the tracker's entry against capacity_report
+    rep = eng.vm.capacity_report()[eng.pool_name]
+    secded_pages = rep["rows"] - rep["boundary"] - rep["daec_rows"]
+    want = {("secded",): secded_pages,
+            ("none",): rep["boundary"] + rep["extra_pages"]}
+    got = {(r["labels"]["cls"],): r["value"]
+           for r in snap[m.NAME_CAPACITY_PAGES]["series"]}
+    check({k: v for k, v in got.items() if v or k in want} ==
+          {k: v for k, v in want.items() if v or k in got},
+          f"{mode}: capacity gauges {got} != {want}")
+    check(m.REGISTRY.value(m.NAME_CAPACITY_RECLAIMED, pool=eng.pool_name)
+          == rep["extra_pages"], f"{mode}: reclaimed-pages gauge")
+    cap = obs.slo.TRACKER.capacity[eng.pool_name]
+    check((cap.total_rows, cap.reclaimed_pages, cap.boundary)
+          == (rep["rows"], rep["extra_pages"], rep["boundary"]),
+          f"{mode}: SLO capacity entry {cap} != {rep}")
+    # spans: the step's phases, one gather per decode step, an export
+    names = Counter(e["name"] for e in obs.tracing.TRACER.events)
+    check(all(names[n] for n in (*STEP_SPANS, "engine.prefill")),
+          f"{mode}: spans {dict(names)}")
+    check(names["engine.step.gather"] == eng.steps,
+          f"{mode}: {names['engine.step.gather']} gather spans for "
+          f"{eng.steps} steps")
+    trace = common.BUILD_DIR / f"telemetry_{mode}.json"
+    obs.tracing.export(str(trace))
+    check(len(json.loads(trace.read_text())["traceEvents"])
+          == len(obs.tracing.TRACER.events), f"{mode}: Perfetto export")
+    # CREAM-Lens: one decode gather a step, none dropped
+    recs = obs.memprof.records()
+    check(obs.memprof.PROFILER.dropped == 0, f"{mode}: memprof dropped")
+    decode = Counter(r.step for r in recs if r.stream == "decode")
+    check(decode == Counter(range(1, eng.steps + 1))
+          and all(r.op == "gather" for r in recs if r.stream == "decode"),
+          f"{mode}: decode gathers per step")
+    prof = obs.memprof.profile(recs[-4:])      # a replay of the last four
+    return eng, dict(tokens_equal=True, wall_s=wall, launches=launches,
+                     decode_steps=eng.steps,
+                     prefills=sum(prefills.values()),
+                     spans=dict(names), records=len(recs),
+                     bank_profile=dict(prof["overall"], heatmap=None),
+                     slo=[dataclasses.astuple(st)
+                          for st in obs.slo.TRACKER.report()])
+
+
+def aten_ops(torch, fn):
+    """PyTorch operations ``fn`` runs, by name, counted at the dispatcher
+    (views included): unlike a profiler's device-event count, every one
+    is seen."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops[str(func.overloadpacket)] += 1
+            return func(*args, **(kwargs or {}))
+
+    ops = Counter()
+    with Count():
+        fn()
+    return ops
+
+
+def fold_ops(torch, np, eng) -> dict:
+    """What the metrics plane adds to a full-batch decode step: one step
+    with every plane off, one with metrics on, their PyTorch operations
+    counted at the dispatcher and their kernel launches. Metrics on must
+    run exactly the operations of the step with planes off, less the
+    data-only read, plus the read with its status, the reduction and the
+    counts' copy to the host, each counted alone on the step's ids, and
+    the two views that split the one upload of ids and count rows: the
+    eight device operations of FOLD_OPS and views. Both steps make one
+    mixed-read launch."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.mixed import ops as mixed_ops
+    from repro_torch.serve import engine as engine_mod
+    full_batch(np, eng, 8, "ops")
+    seen, walk = [], eng.kv.gather_phys
+    eng.kv.gather_phys = lambda rows: seen.append(walk(rows)) or seen[-1]
+    steps = {}
+    for metrics in (False, True):
+        set_planes(metrics=metrics)
+        before = common.LAUNCHES["mixed_read_correct"]
+        steps[metrics] = aten_ops(torch, eng.step)
+        check(common.LAUNCHES["mixed_read_correct"] - before == 1,
+              "a step is one mixed-read launch")
+    set_planes()
+    del eng.kv.gather_phys
+    pool, phys = eng.pool, seen[-1].reshape(-1)
+    args = (pool.storage, eng._ids(phys), pool.layout, pool.num_rows,
+            pool.boundary)
+    rows4 = eng._ids(engine_mod._status_rows(pool, phys))
+    _, status = mixed_ops.read_correct(*args, status=True)
+    counts = engine_mod._status_counts(rows4, status)
+    piece = {
+        "read": aten_ops(torch, lambda: mixed_ops.read_correct(*args)),
+        "read_status": aten_ops(
+            torch, lambda: mixed_ops.read_correct(*args, status=True)),
+        "reduction": aten_ops(
+            torch, lambda: engine_mod._status_counts(rows4, status)),
+        "copy": aten_ops(torch, lambda: np.asarray(counts.cpu()))}
+    want = steps[False] - piece["read"] + piece["read_status"] \
+        + piece["reduction"] + piece["copy"]
+    want["aten.select"] += 2
+    check(steps[True] == want,
+          f"metrics on: {dict(steps[True] - want)} more and "
+          f"{dict(want - steps[True])} fewer operations than named")
+    drain(eng)
+    return dict(step_ops={"off": sum(steps[False].values()),
+                          "metrics": sum(steps[True].values())},
+                added={k: v for k, v in (steps[True] - steps[False]).items()},
+                removed={k: v for k, v in
+                         (steps[False] - steps[True]).items()})
+
+
+def memprof_steps(np, eng, steps: int = 3) -> int:
+    """The property of the reference's CREAM-Lens engine test: with the
+    profiler reset after the admissions, each decode step of a full batch
+    records exactly one ``decode`` gather and one scatter."""
+    from repro_torch.obs import memprof
+    full_batch(np, eng, steps + 4, "lens")
+    memprof.reset()
+    set_planes(metrics=True, memprof=True)
+    for _ in range(steps):
+        eng.step()
+    recs = [(r.step, r.op, r.stream) for r in memprof.records()]
+    set_planes()
+    check(recs == [(s, op, stream) for s in range(1, steps + 1)
+                   for op, stream in (("gather", "decode"),
+                                      ("scatter", "main"))],
+          f"decode-step records {recs}")
+    drain(eng)
+    return steps
+
+
+def plant_singles(torch, np, eng, pages: int) -> int:
+    """Single data-bit flips in ``pages`` distinct SECDED pages the next
+    step reads (each page's lane k, word w, bit b from a seeded draw);
+    returns the pages (with repeats) a status read of the step's ids
+    reports corrected on the card right after."""
+    pool = eng.pool
+    eng.sched.ensure_step()
+    rows = np.asarray([s.row if s is not None else -1
+                       for s in eng.sched.slots])
+    phys = eng.kv.gather_phys(rows).reshape(-1)
+    ids = np.unique(phys[(phys >= pool.boundary) & (phys < pool.num_rows)])
+    rng = np.random.default_rng(SEED + 30)
+    chosen = rng.choice(ids, pages, replace=False)
+    for k, page in enumerate(chosen):
+        pool.storage[int(page), k % 8, int(rng.integers(0, W))] ^= \
+            1 << int(rng.integers(0, 31))
+    _, status = pool.read(phys, status=True)
+    return int(((status == 1) | (status == 2)).sum())
+
+
+def phase_telemetry(torch, np, tok_c, off_events) -> tuple[dict, dict]:
+    """serve-cream and serve-secded at qwen3-0.6b full width with every
+    plane on (telemetry_serve), then on the cream engine the device
+    operations the metrics plane adds to a step (fold_ops; the profile
+    phase's planes-off window, off_events, is printed beside them) and the
+    step's span split and plane overhead, and on the secded engine
+    planted flips: single-bit flips in pages the next step reads, whose
+    folded secded/corrected count must equal a status read of the same
+    ids, then one double-bit flip that must count one uncorrectable and
+    breach the secded SLO."""
+    from repro_torch import obs
+    m = obs.metrics
+    out, launches = {}, {}
+    eng, out["cream"] = telemetry_serve(torch, np, "cream", tok_c)
+    launches = dict(out["cream"]["launches"])
+    # device operations a step, every plane off against metrics on
+    reset_planes()
+    out["device_ops"] = dict(fold_ops(torch, np, eng), named=list(FOLD_OPS),
+                             profile_window_planes_off=off_events)
+    reset_planes()
+    out["span_split"] = span_split(torch, np, eng)
+    out["overhead"] = plane_overhead(torch, np, eng)
+    memprof_steps(np, eng)
+    reset_planes()
+    del eng
+    torch.cuda.empty_cache()
+
+    eng, out["secded"] = telemetry_serve(torch, np, "secded", tok_c)
+    for k, v in out["secded"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    out["memprof_steps"] = memprof_steps(np, eng)
+    reset_planes()
+    set_planes(metrics=True)
+    full_batch(np, eng, 8, "flips")
+    want = plant_singles(torch, np, eng, pages=FLIP_PAGES)
+    check(want >= FLIP_PAGES,
+          f"{want} corrected pages read for {FLIP_PAGES} planted flips")
+    eng.step()
+    got = m.REGISTRY.value(m.NAME_READ_STATUS, cls="secded",
+                           status="corrected")
+    check(got == want,
+          f"folded secded/corrected {got} != status read {want}")
+    check(m.REGISTRY.value(m.NAME_READ_STATUS, cls="secded",
+                           status="uncorrectable") == 0, "no double yet")
+    eng.sched.ensure_step()
+    rows = np.asarray([s.row if s is not None else -1
+                       for s in eng.sched.slots])
+    phys = eng.kv.gather_phys(rows).reshape(-1)
+    page = int(phys[0])
+    eng.pool.storage[page, 2, 5] ^= 0b11            # two bits, one beat
+    reads = int((phys == page).sum())
+    eng.step()
+    unc = m.REGISTRY.value(m.NAME_READ_STATUS, cls="secded",
+                           status="uncorrectable")
+    check(unc == reads == 1, f"{unc} uncorrectable for one double-bit page "
+                             f"read {reads} times")
+    breached = [st.scope for st in obs.slo.TRACKER.breached()]
+    check("class/secded" in breached,
+          f"secded SLO not breached: {breached}")
+    drain(eng)
+    out["flips"] = dict(planted_singles=FLIP_PAGES, corrected_read=want,
+                        folded_corrected=got, folded_uncorrectable=unc,
+                        breached=breached)
+    reset_planes()
+    del eng
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def device_breakdown(prof, window_ms: float, per: int = 1,
@@ -2990,8 +3440,8 @@ def phase_serve_starcoder2(torch, np) -> tuple[dict, list]:
             check(dense[0] == tokens["cream"][0],
                   "starcoder2-7b: served tokens differ from the dense decode")
             runs["profile"] = decode_profile(torch, np, eng)
-            while eng.sched.has_work():
-                eng.poll()
+            drain(eng)
+            runs["span_split"] = span_split(torch, np, eng)
         del eng
         torch.cuda.empty_cache()
     check(tokens["cream"] == tokens["secded"],
@@ -3083,7 +3533,8 @@ def main() -> int:
 
     eng, tok_c, st_c, l_c, _, wall_c = serve_phase(torch, np, "cream")
     phase("serve-cream", summary(st_c, l_c, wall_c))
-    phase("profile", phase_profile(torch, np, eng))
+    prof_c = phase_profile(torch, np, eng)
+    phase("profile", prof_c)
     del eng
     torch.cuda.empty_cache()
 
@@ -3114,6 +3565,9 @@ def main() -> int:
                                     **summary(st_r, l_r, wall_r)))
     del eng
     torch.cuda.empty_cache()
+    tele, l_tm = phase_telemetry(torch, np, tok_c,
+                                 prof_c.get("device_events"))
+    phase("telemetry", tele)
 
     phase("shard-reference", phase_shard_reference(torch, np))
     shard, l_ss = phase_serve_shard(torch, np, tok_c)
@@ -3162,9 +3616,9 @@ def main() -> int:
     seq, l_sq = phase_seqcache(torch, np, model)
     phase("seqcache", seq)
     del model
-    main_paths = [l_c, l_s, l_r, l_ss, *l_z.values(), *l_w.values(), l_d,
-                  l_a, l_cs, l_cd, l_rg, l_wb, l_ls, *l_sc2, l_mg, l_pl,
-                  *l_sq, l_em]
+    main_paths = [l_c, l_s, l_r, l_tm, l_ss, *l_z.values(), *l_w.values(),
+                  l_d, l_a, l_cs, l_cd, l_rg, l_wb, l_ls, *l_sc2, l_mg,
+                  l_pl, *l_sq, l_em]
     # a PARITY pool's write is one parity8_write; the standalone encode
     # keeps the TPU kernel's contract and is on no main path
     check(not any(l.get("parity8_encode") for l in main_paths),

@@ -25,7 +25,9 @@ What this package holds today:
     policy and the tenant reliability SLOs;
   * :mod:`repro_torch.faults`  — CREAM-Campaign: FIT-driven live
     injection, the shadow oracle and the closed SLO loop;
-  * :mod:`repro_torch.obs`     — the reliability / capacity SLO tracker;
+  * :mod:`repro_torch.obs`     — the telemetry plane: metrics, span
+    tracing, the reliability / capacity SLO tracker, the dashboard and
+    the CREAM-Lens bank profiler (``python -m repro_torch.tools.creamtop``);
   * :mod:`repro_torch.objcache` — CREAM-Cache, the key-value object cache
     on pool pages (the paper's memcached and WebSearch workloads);
   * :mod:`repro_torch.models`  — the attention-only decoder: forward and
@@ -37,6 +39,6 @@ Entry points (``Engine``, ``VirtualMemory``, ``make_pool``,
 ``make_sharded_pool``, ``make_index``, ``build_model``, ``SequenceCache``;
 ``ObjCache`` through its VM) run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
-without ``device="cpu"`` they raise. Nothing here imports ``jax`` or
-:mod:`repro`.
+without ``device="cpu"`` they raise. Nothing here imports ``jax``,
+:mod:`repro` or ``benchmarks``.
 """

@@ -8,9 +8,9 @@ keeps windowed error-rate estimates, and recommends protection transitions:
   * rate below ``downgrade_threshold`` for ``downgrade_patience``
     consecutive windows -> weaken, reclaiming capacity.
 
-Pure-python control plane. The reference's telemetry feed (``_emit``: SLO
-tracker and metrics) waits for the telemetry port (ROADMAP, queue 1
-item 5).
+Pure-python control plane. Every scrub census it records also feeds the
+telemetry plane (:meth:`ErrorMonitor._emit`): the SLO tracker always, the
+scrub counters and the region error-rate gauge when metrics are on.
 """
 from __future__ import annotations
 
@@ -65,8 +65,42 @@ class ErrorMonitor:
 
     def record(self, region: str, stats: ScrubStats) -> None:
         """Fold one scrub sweep's census."""
-        self._fold(self._region(region), stats.error_rate,
+        h = self._region(region)
+        self._fold(h, stats.error_rate,
                    stats.detected_uncorrectable + stats.parity_corrupt_lines)
+        self._emit(region, stats, h)
+
+    def _emit(self, region: str, stats: ScrubStats,
+              h: RegionHealth) -> None:
+        """Feed the telemetry plane: SLO tracker always, metrics when on."""
+        from repro_torch.obs import metrics, slo
+        slo.TRACKER.record_scrub(region, stats)
+        if not metrics.enabled():
+            return
+        metrics.counter(metrics.NAME_SCRUB_SWEEPS,
+                        "scrub sweeps recorded per region",
+                        labels=("region",)).labels(region=region).inc()
+        metrics.counter(metrics.NAME_SCRUB_BEATS,
+                        "beats + parity lines checked by scrub",
+                        labels=("region",)).labels(region=region).inc(
+            stats.beats_checked + stats.parity_lines_checked)
+        c = metrics.counter(metrics.NAME_SCRUB_CORRECTED,
+                            "errors repaired in place by scrub",
+                            labels=("region", "kind"))
+        if stats.corrected_data:
+            c.labels(region=region, kind="data").inc(stats.corrected_data)
+        if stats.corrected_code:
+            c.labels(region=region, kind="code").inc(stats.corrected_code)
+        if stats.detected_uncorrectable or stats.parity_corrupt_lines:
+            metrics.counter(
+                metrics.NAME_SCRUB_UNCORRECTABLE,
+                "detected-uncorrectable beats + corrupt parity lines",
+                labels=("region",)).labels(region=region).inc(
+                stats.detected_uncorrectable + stats.parity_corrupt_lines)
+        metrics.gauge(metrics.NAME_REGION_ERROR_RATE,
+                      "windowed error-rate estimate per region",
+                      labels=("region",)).labels(region=region).set(
+            h.rate(self.config.window))
 
     def record_observation(self, region: str, checked: int,
                            corrected: int = 0, uncorrectable: int = 0,

@@ -16,7 +16,10 @@ gather or scatter plus the batched SECDED codec
 card, the plain versions on the CPU). A pool whose CREAM region covers
 every row under InterWrap (``boundary == R``) has no codes to keep, and
 its pages move through the InterWrap gather / scatter
-(:mod:`repro_torch.kernels.interwrap`) alone.
+(:mod:`repro_torch.kernels.interwrap`) alone. Each verb, and each public
+batch function below, feeds CREAM-Lens one record of its ids
+(:meth:`PoolState.memprof_record`, one boolean check while the profiler
+is off), as the reference's jitted entry points do.
 
 ``daec_rows`` carves the top of the protected region into the SEC-DAEC
 tier: pages ``[R - daec_rows, R)`` keep :mod:`repro_torch.core.daec` code
@@ -61,6 +64,7 @@ from repro_torch.kernels.daec import ops as daec_ops
 from repro_torch.kernels.interwrap import ops as interwrap_ops
 from repro_torch.kernels.parity8 import ops as parity8_ops
 from repro_torch.kernels.secded import ops as secded_ops
+from repro_torch.obs import memprof
 
 
 @dataclass
@@ -141,6 +145,7 @@ class PoolState:
         the input state. ``valid`` (optional ``(n,)`` bool) drops masked
         rows entirely.
         """
+        self.memprof_record("scatter", pages)
         return _write_in_place(self, pages, data, valid)
 
     def migrate(self, src_pages, dst_pages, *,
@@ -148,10 +153,12 @@ class PoolState:
         """In-pool page relocation ``src -> dst``: decode-corrected read,
         then code-maintaining write. ``donate=False`` leaves the input
         state's storage untouched (callers that may roll back)."""
+        self.memprof_record("gather", src_pages)
+        self.memprof_record("scatter", dst_pages)
         state = self if donate else dataclasses.replace(
             self, storage=self.storage.clone())
         return _write_in_place(state, dst_pages,
-                               read_pages_any(self, src_pages))
+                               _read_any_status(self, src_pages)[0])
 
     def streams(self, pages, data=None, *, valid=None):
         """Bank-aligned stream access with ``(S, n)`` ids: reads ``(S, n,
@@ -188,6 +195,20 @@ class PoolState:
     def has_parity(self) -> bool:
         """Whether the pool keeps the PARITY side channel."""
         return self.layout == Layout.PARITY and self.boundary > 0
+
+    def memprof_record(self, op: str, pages, stream: str = "main") -> None:
+        """Feed one dispatch to CREAM-Lens (no-op unless memprof enabled).
+
+        The pool's read / write / migrate call it; owners with context the
+        pool can't see (the serving engine's fused decode gather, the
+        object cache) call it directly. Enabled, it validates the ids on
+        the host first, as the dispatch would.
+        """
+        if not memprof.enabled():
+            return
+        memprof.record(op, _host_ids(self, pages), layout=self.layout,
+                       num_rows=self.num_rows, boundary=self.boundary,
+                       row_words=self.row_words, stream=stream)
 
 
 def make_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
@@ -327,6 +348,14 @@ def read_pages_any_status(state: PoolState, pages
     reference decodes the whole batch with both codecs and selects, which
     gives the same bits).
     """
+    state.memprof_record("gather", pages)
+    return _read_any_status(state, pages)
+
+
+def _read_any_status(state: PoolState, pages
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`read_pages_any_status` without the CREAM-Lens record: the
+    reads of dispatches that record themselves."""
     _, data, status, _ = _decoded_read(state, pages)
     return data, status
 
@@ -416,6 +445,7 @@ def read_pages_any_writeback(state: PoolState, pages
     new_state)``. Works on a copy, as the reference (which does not donate
     here): ``state`` stays valid.
     """
+    state.memprof_record("gather", pages)
     copy = dataclasses.replace(state, storage=state.storage.clone())
     data, status = _writeback_in_place(copy, pages)
     return data, status, copy
@@ -490,6 +520,7 @@ def write_pages_any(state: PoolState, pages, data,
     Functional, as in the reference: works on a copy of the storage and
     leaves ``state`` valid. ``data`` is ``(n, page_words)``.
     """
+    state.memprof_record("scatter", pages)
     copy = dataclasses.replace(state, storage=state.storage.clone())
     return _write_in_place(copy, pages, data, valid)
 
@@ -500,14 +531,15 @@ def read_page(state: PoolState, page: int
     a 0-d int32 tensor: the page's worst beat or line status (0 clean, 1/2
     corrected, 3 detected-uncorrectable). Corrections are reported, not
     persisted (see ``scrub`` and :func:`read_pages_any_writeback`)."""
-    data, status = read_pages_any_status(state, [page])
+    data, status = _read_any_status(state, [page])
     return data[0], status[0]
 
 
 def write_page(state: PoolState, page: int, data) -> PoolState:
     """Write one page, maintaining codes for protected pages. Functional,
     as in the reference: works on a copy and leaves ``state`` valid."""
-    return write_pages_any(state, [page], data)
+    copy = dataclasses.replace(state, storage=state.storage.clone())
+    return _write_in_place(copy, [page], data)
 
 
 def migrate_pages(src: PoolState, src_pages, dst: PoolState,
@@ -516,7 +548,8 @@ def migrate_pages(src: PoolState, src_pages, dst: PoolState,
     ``src_pages`` from ``src`` and a code-maintaining write of the pages
     to ``dst_pages`` of ``dst``, in place (the reference donates ``dst``'s
     storage): drop the input ``dst``."""
-    return _write_in_place(dst, dst_pages, read_pages_any(src, src_pages))
+    return _write_in_place(dst, dst_pages,
+                           _read_any_status(src, src_pages)[0])
 
 
 def set_daec_rows(state: PoolState, daec_rows: int) -> PoolState:
@@ -614,10 +647,12 @@ def repartition(state: PoolState, new_boundary: int
             affected.shape[0], -1)
         fixed, _, _ = secded_ops.decode(
             block, state.storage[affected, CODE_LANE, :].contiguous())
-        new_state = _write_in_place(
-            PoolState(storage, new_boundary, state.layout, state.row_words,
-                      state.daec_rows), affected, fixed)
+        grown = PoolState(storage, new_boundary, state.layout,
+                          state.row_words, state.daec_rows)
+        grown.memprof_record("scatter", affected)
+        new_state = _write_in_place(grown, affected, fixed)
         info["pages_reencoded"] = new_boundary - old
     if extra_ids is not None:      # re-home the surviving PARITY extras
+        new_state.memprof_record("scatter", extra_ids)
         new_state = _write_in_place(new_state, extra_ids, extra_data)
     return new_state, info

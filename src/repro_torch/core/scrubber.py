@@ -83,6 +83,13 @@ def scrub(state: PoolState, use_kernel: bool = False
     is the reference's ``use_kernel=False`` path bit for bit.
     """
     del use_kernel
+    from repro_torch.obs import tracing
+    with tracing.span("scrub.sweep", rows=state.num_rows,
+                      boundary=state.boundary, layout=state.layout.value):
+        return _scrub_impl(state)
+
+
+def _scrub_impl(state: PoolState) -> tuple[PoolState, ScrubStats]:
     storage = state.storage
     B, R = state.boundary, state.num_rows
     D = state.daec_start     # the SECDED span ends where the DAEC tier begins

@@ -21,6 +21,15 @@
 // the matching packed code word and correct data-bit errors in registers
 // before the store; other pages skip the code lane entirely. Rows are
 // clamped into the pool, so a stray id cannot read outside the storage.
+//
+// Status output (optional, the serving step's metrics-on read): with a
+// non-null `status` the block also keeps the worst SECDED status its
+// threads' beats decoded (correct_group's 0 clean, 1 data fixed, 2 code
+// fixed, 3 detected uncorrectable; 0 for pages outside the SECDED region),
+// reduces it across the block (a warp max, then one shared word) and
+// writes the page's worst with one atomicMax. The eight slice blocks of a
+// page race on its word, so the caller zeroes `status` before the launch.
+// The template keeps the status-free launch the kernel it was.
 #include "coords.cuh"
 #include "secded.cuh"
 
@@ -28,9 +37,11 @@ using namespace repro_torch;
 
 namespace {
 
+template <bool kStatus>
 __global__ void mixed_read_correct_kernel(const int32_t* __restrict__ storage,
                                           const int32_t* __restrict__ pages,
-                                          int32_t* __restrict__ out, int W,
+                                          int32_t* __restrict__ out,
+                                          int32_t* __restrict__ status, int W,
                                           int interwrap, int num_rows,
                                           int boundary, int ebase) {
   const int i = blockIdx.x, k = blockIdx.y;
@@ -47,11 +58,23 @@ __global__ void mixed_read_correct_kernel(const int32_t* __restrict__ storage,
                     * W) + k * (W / 8);
   uint4* dst = reinterpret_cast<uint4*>(
       out + (static_cast<size_t>(i) * 8 + k) * W);
+  int worst = 0;
   for (int t = threadIdx.x; t < W / 8; t += blockDim.x) {
     uint4 a = src[2 * t], b = src[2 * t + 1];
-    if (sec) correct_group(a, b, code[t]);
+    if (sec) worst = max(worst, correct_group(a, b, code[t]));
     dst[2 * t] = a;
     dst[2 * t + 1] = b;
+  }
+  if constexpr (kStatus) {
+    // blockDim.x is a whole number of warps (slice_threads), all of them
+    // past the loop here
+    __shared__ int block_worst;
+    if (threadIdx.x == 0) block_worst = 0;
+    __syncthreads();
+    worst = __reduce_max_sync(0xFFFFFFFFu, worst);
+    if ((threadIdx.x & 31) == 0 && worst) atomicMax(&block_worst, worst);
+    __syncthreads();
+    if (threadIdx.x == 0 && block_worst) atomicMax(status + i, block_worst);
   }
 }
 
@@ -118,14 +141,22 @@ extern "C" int mixed_read_correct_routed(const void* storage,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `status` may be null (no status output); else n zeroed int32 words.
 extern "C" int mixed_read_correct(const void* storage, const void* pages,
-                                  void* out, int n, int W, int interwrap,
-                                  int num_rows, int boundary, int ebase,
-                                  void* stream) {
+                                  void* out, void* status, int n, int W,
+                                  int interwrap, int num_rows, int boundary,
+                                  int ebase, void* stream) {
   const dim3 grid(n, 8);
-  mixed_read_correct_kernel<<<grid, slice_threads(W), 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(storage), static_cast<const int32_t*>(pages),
-      static_cast<int32_t*>(out), W, interwrap, num_rows, boundary, ebase);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* st = static_cast<const int32_t*>(storage);
+  const auto* pg = static_cast<const int32_t*>(pages);
+  auto* o = static_cast<int32_t*>(out);
+  auto* stat = static_cast<int32_t*>(status);
+  if (stat)
+    mixed_read_correct_kernel<true><<<grid, slice_threads(W), 0, s>>>(
+        st, pg, o, stat, W, interwrap, num_rows, boundary, ebase);
+  else
+    mixed_read_correct_kernel<false><<<grid, slice_threads(W), 0, s>>>(
+        st, pg, o, nullptr, W, interwrap, num_rows, boundary, ebase);
   return static_cast<int>(cudaGetLastError());
 }

@@ -92,15 +92,18 @@ __device__ __forceinline__ int decode_beat(uint32_t& lo, uint32_t& hi,
 
 // Data-only correction of 8 words against their packed code word: single
 // data-bit errors are fixed, code-bit and uncorrectable beats pass through.
-// This is the in-gather variant (the TPU's decode_correct_block).
-__device__ __forceinline__ void correct_group(uint4& a, uint4& b,
-                                              uint32_t packed) {
+// This is the in-gather variant (the TPU's decode_correct_block). Returns
+// the worst of the four beats' statuses (decode_beat's 0..3); callers that
+// do not report a status ignore it and the compiler drops the max.
+__device__ __forceinline__ int correct_group(uint4& a, uint4& b,
+                                             uint32_t packed) {
   uint32_t c0 = packed & 0xFFu, c1 = (packed >> 8) & 0xFFu,
            c2 = (packed >> 16) & 0xFFu, c3 = packed >> 24;
-  decode_beat(a.x, a.y, c0);
-  decode_beat(a.z, a.w, c1);
-  decode_beat(b.x, b.y, c2);
-  decode_beat(b.z, b.w, c3);
+  const int s0 = decode_beat(a.x, a.y, c0);
+  const int s1 = decode_beat(a.z, a.w, c1);
+  const int s2 = decode_beat(b.x, b.y, c2);
+  const int s3 = decode_beat(b.z, b.w, c3);
+  return max(max(s0, s1), max(s2, s3));
 }
 
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) {

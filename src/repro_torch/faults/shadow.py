@@ -224,6 +224,10 @@ class ShadowedPool:
     # and the shadowed write, as on a local pool
     streams = PoolState.streams
 
+    def memprof_record(self, op: str, pages, stream: str = "main") -> None:
+        """CREAM-Lens sees the wrapped pool's dispatches."""
+        self.inner.memprof_record(op, pages, stream)
+
     # -- control plane -------------------------------------------------------
     def evict_prediction(self, new_boundary: int) -> list[int]:
         return self.inner.evict_prediction(new_boundary)

@@ -140,8 +140,9 @@ ENTRIES = {
     "secded_encode": (_P, _P, _I, _P),
     # data, codes, out_data, out_codes, status, n_code_words, stream
     "secded_decode": (_P, _P, _P, _P, _P, _I, _P),
-    # storage, pages, out, n, W, interwrap, num_rows, boundary, ebase, stream
-    "mixed_read_correct": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # storage, pages, out, status (or NULL), n, W, interwrap, num_rows,
+    # boundary, ebase, stream
+    "mixed_read_correct": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # storage, pages, out, n, W, interwrap, num_rows, num_shards,
     # boundary_local, ebase, stream
     "mixed_read_correct_routed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -241,8 +242,8 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args, counts_as: str | None = None) -> None:
     """Call C entry ``name`` on torch's current stream; raise on a CUDA
-    error. Tensors pass as device pointers, numbers as ``ENTRIES`` types
-    them. The launch counts under ``counts_as`` (a kernel with several C
+    error. Tensors pass as device pointers (None as a null pointer),
+    numbers as ``ENTRIES`` types them. The launch counts under ``counts_as`` (a kernel with several C
     entries), else under ``name``."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream

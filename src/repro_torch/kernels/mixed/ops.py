@@ -14,12 +14,17 @@ from repro_torch.kernels.mixed import ref
 
 
 def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
-                 num_rows: int, boundary: int) -> torch.Tensor:
-    """(R, 9, W) pool, (n,) page ids -> (n, 8W) corrected page data.
+                 num_rows: int, boundary: int, status: bool = False):
+    """(R, 9, W) pool, (n,) page ids -> (n, 8W) corrected page data, and
+    with ``status=True`` also each page's worst SECDED decode status
+    ``(n,)`` int32 (0 clean, 1/2 corrected, 3 detected uncorrectable; 0
+    outside the SECDED region) -> ``(data, status)``.
 
     Page ids must be in range (the pool validates them on the host); the
     kernel clamps rows into the pool all the same, so a stray id can never
-    read outside the storage.
+    read outside the storage. On the card the status comes out of the same
+    launch: the wrapper zeroes it first (one fill), since the page's eight
+    slice blocks combine their statuses with ``atomicMax``.
     """
     if storage.dim() != 3 or storage.shape[1] != LANES \
             or storage.shape[0] != num_rows or storage.shape[2] % 8:
@@ -29,18 +34,21 @@ def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
         raise ValueError("pages must be a 1-D id vector")
     common.check_contiguous("mixed_read_correct", storage, pages)
     if storage.device.type == "cpu" and pages.device.type == "cpu":
-        return ref.read_correct(storage, pages, layout, num_rows, boundary)
+        return ref.read_correct(storage, pages, layout, num_rows, boundary,
+                                status=status)
     W = storage.shape[2]
     pages = pages.to(torch.int32)
     common.check_cuda_words("mixed_read_correct", storage, pages)
     n = pages.shape[0]
     out = torch.empty((n, DATA_LANES * W), dtype=torch.int32,
                       device=storage.device)
+    st = torch.zeros((n,), dtype=torch.int32, device=storage.device) \
+        if status else None
     if n:
-        common.launch("mixed_read_correct", storage, pages, out, n, W,
+        common.launch("mixed_read_correct", storage, pages, out, st, n, W,
                       int(layout == Layout.INTERWRAP), num_rows, boundary,
                       extra_base_row(layout, boundary, W))
-    return out
+    return (out, st) if status else out
 
 
 def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,

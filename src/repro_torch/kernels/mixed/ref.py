@@ -18,18 +18,27 @@ from repro_torch.core.layouts import (CODE_LANE, REGION_SECDED, Layout,
 
 
 def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
-                 num_rows: int, boundary: int) -> torch.Tensor:
-    """(R, 9, W) pool, (n,) page ids -> (n, 8W) decode-corrected page data."""
+                 num_rows: int, boundary: int, status: bool = False):
+    """(R, 9, W) pool, (n,) page ids -> (n, 8W) decode-corrected page data,
+    or with ``status=True`` ``(data, status (n,) int32)``: each page's
+    worst beat status, 0 outside the SECDED region — the status of
+    ``read_pages_any_status`` on every layout but PARITY, whose parity
+    check this read does not run."""
     pages = pages.long()
     n = pages.shape[0]
     rows, lanes, region = page_coords(layout, num_rows, boundary, pages,
                                       storage.shape[2])
     data = storage[rows, lanes, :].reshape(n, -1)
-    if boundary < num_rows:
-        crow = torch.clamp(pages, boundary, num_rows - 1)
-        fixed, _, _ = secded.decode_block(data, storage[crow, CODE_LANE, :])
-        data = torch.where((region == REGION_SECDED)[:, None], fixed, data)
-    return data
+    if boundary >= num_rows:
+        return (data, torch.zeros((n,), dtype=torch.int32,
+                                  device=storage.device)) if status else data
+    crow = torch.clamp(pages, boundary, num_rows - 1)
+    fixed, _, beats = secded.decode_block(data, storage[crow, CODE_LANE, :])
+    is_sec = region == REGION_SECDED
+    data = torch.where(is_sec[:, None], fixed, data)
+    if not status:
+        return data
+    return data, torch.where(is_sec, beats.amax(dim=-1), 0).to(torch.int32)
 
 
 def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,

@@ -26,8 +26,10 @@ shadow) the probe stays a global index lookup and the resolved pages take
 the pool's own ``read`` — on a sharded pool one router-fused mixed read
 (:mod:`repro_torch.kernels.mixed`).
 
-Not ported: the reference's telemetry calls (spans, metrics, CREAM-Lens
-records; ROADMAP, queue 1 item 5).
+Telemetry as the reference's: ``objcache.set`` / ``objcache.get`` spans,
+``cream_objcache_ops_total`` by outcome, and one CREAM-Lens record per
+batch on stream ``objcache`` (the pool verbs inside run with the
+profiler suspended, as the reference's jitted batch records once).
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ from repro_torch.kernels.hash import ops as hash_ops
 from repro_torch.objcache import hash_index as hix
 from repro_torch.objcache.hash_index import HashIndex
 from repro_torch.objcache.slab import SlabAllocator
+from repro_torch.obs import memprof as obs_memprof
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.vm.address_space import VirtualMemory
 
 
@@ -283,11 +288,24 @@ class ObjCache:
         # keep the LAST occurrence of each duplicated key
         _, ridx = np.unique(keys[::-1], return_index=True)
         take = np.sort(n - 1 - ridx)
-        ok_u = self._set_unique(keys[take], values[take], lens[take],
-                                reliability)
+        before = (self.stats.sets, self.stats.rejected, self.stats.evictions)
+        with obs_tracing.span("objcache.set", n=n, cls=reliability.value):
+            ok_u = self._set_unique(keys[take], values[take], lens[take],
+                                    reliability)
         order = np.argsort(keys[take], kind="stable")
         stored = ok_u[order][np.searchsorted(keys[take][order], keys)]
         self.stats.set_s += time.perf_counter() - t0
+        if obs_metrics.enabled():
+            c = obs_metrics.counter(
+                obs_metrics.NAME_OBJCACHE_OPS,
+                "object-cache operations by outcome", labels=("op",))
+            for op, delta in zip(
+                    ("set", "rejected", "evicted"),
+                    (self.stats.sets - before[0],
+                     self.stats.rejected - before[1],
+                     self.stats.evictions - before[2])):
+                if delta:
+                    c.labels(op=op).inc(delta)
         return stored
 
     def _insert(self, q: torch.Tensor, pages: torch.Tensor,
@@ -336,10 +354,12 @@ class ObjCache:
         upages, inv = np.unique(pages[sub], return_inverse=True)
         off_d = self._dev(off[sub])
         lens_d = self._dev(lens[sub])
-        self.vm.pools[self.pool_name] = _write_values(
-            self.pool, upages, self._dev(inv.reshape(-1)), off_d, lens_d,
-            upload(np.asarray(values[sub], np.uint32).view(np.int32),
-                   self.vm.device))
+        self.pool.memprof_record("scatter", upages, stream="objcache")
+        with obs_memprof.suspended():
+            self.vm.pools[self.pool_name] = _write_values(
+                self.pool, upages, self._dev(inv.reshape(-1)), off_d,
+                lens_d, upload(np.asarray(values[sub], np.uint32)
+                               .view(np.int32), self.vm.device))
         self.vm.stats.device_writes += len(upages)
         # 4) index insert; a full probe window evicts-and-retries (rare)
         qsub = self._device_keys(keys[sub])
@@ -386,14 +406,18 @@ class ObjCache:
         if n == 0:
             return (np.zeros((0, self.max_value_words), np.uint32),
                     np.zeros(0, np.int32), np.zeros(0, bool))
-        vals_d, lens_d, slot_d, found_d = _get_batch(
-            self.pool, self.index, self._device_keys(keys),
-            self.max_value_words)
+        with obs_tracing.span("objcache.get", n=n), obs_memprof.suspended():
+            vals_d, lens_d, slot_d, found_d = _get_batch(
+                self.pool, self.index, self._device_keys(keys),
+                self.max_value_words)
         vals = to_u32(vals_d)                  # a fresh, writable copy
         lens, slot, found = (t.cpu().numpy()
                              for t in (lens_d, slot_d, found_d))
         hs = slot[found]
         if len(hs):
+            if obs_memprof.enabled():   # the fused probe + gather, whole
+                self.pool.memprof_record("gather", self._phys[self._vpn[hs]],
+                                         stream="objcache")
             # 2Q: a re-referenced item promotes probation -> main
             self._clock += 1
             self._last[hs] = self._clock
@@ -417,6 +441,15 @@ class ObjCache:
         self.stats.hits += int(found.sum())
         self.stats.misses += n - int(found.sum())
         self.stats.get_s += time.perf_counter() - t0
+        if obs_metrics.enabled():
+            c = obs_metrics.counter(
+                obs_metrics.NAME_OBJCACHE_OPS,
+                "object-cache operations by outcome", labels=("op",))
+            c.labels(op="get").inc(n)
+            if found.any():
+                c.labels(op="hit").inc(int(found.sum()))
+            if n - int(found.sum()):
+                c.labels(op="miss").inc(n - int(found.sum()))
         return vals, lens.astype(np.int32), found
 
     # -- delete --------------------------------------------------------------

@@ -1,9 +1,9 @@
 """CREAM-Serve: continuous batching with KV paged onto the CREAM pool.
 
-Port of ``repro/serve/engine.py`` on local and CREAM-Shard pools (the
-telemetry calls are a later slice). Every (sequence, layer, KV block)
-lives in one pool page; the block table (:class:`PagedKV`) maps them and
-the :class:`Scheduler` decides residency. A decode step is:
+Port of ``repro/serve/engine.py`` on local and CREAM-Shard pools. Every
+(sequence, layer, KV block) lives in one pool page; the block table
+(:class:`PagedKV`) maps them and the :class:`Scheduler` decides
+residency. A decode step is:
 
   * ONE page gather — the fused mixed-pool read
     (:mod:`repro_torch.kernels.mixed`, one kernel launch on the card; on a
@@ -23,6 +23,17 @@ On the CPU it runs in the same place, serially.
 
 Shapes are fixed by ``(max_batch, n_layers, max_blocks)``: unbound slots
 read and write a scratch page and are masked by ``cache_len = 0``.
+
+Telemetry (:mod:`repro_torch.obs`), at the reference's places: the
+``serve.router.dispatch`` span around the block-table walk, blocking
+``engine.step.gather`` / ``.compute`` (``.compute_ring`` beside a
+sharded pool's migration) / ``.scatter`` spans, ``engine.prefill``, the
+decode-step, prefill and tokens-by-tier counters, one CREAM-Lens step per
+decode step. With metrics on, the gather also yields each page's decode
+status — on a bare local pool from the mixed read's own launch
+(:func:`_gather_pages_counts`) — reduced on the device to the per-class
+count matrix the registry folds after the step. With every plane off the
+step launches what it launches without them.
 """
 from __future__ import annotations
 
@@ -32,19 +43,56 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import secded
 from repro_torch.core.layouts import Layout
 from repro_torch.core.pool import PoolState
 from repro_torch.kernels.common import resolve_device, upload
 from repro_torch.kernels.mixed import ops as mixed_ops
 from repro_torch.models import build_model
 from repro_torch.models import transformer
+from repro_torch.obs import memprof as obs_memprof
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.serve.paged_kv import PagedKV, token_words_for
 from repro_torch.serve.scheduler import Scheduler, ServeRequest
+from repro_torch.shard.pool import ShardedPool
 from repro_torch.vm.address_space import VirtualMemory
 
 
 def _percentile(xs: list[float], q: float) -> float:
     return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
+
+
+def _status_rows(pool, pages: np.ndarray) -> np.ndarray:
+    """Each page's row of the read-status count matrix, times 4 (the
+    statuses per row): the class rules of the reference's
+    ``_status_counts``, on the host, where the ids are. Rows index
+    :data:`repro_torch.obs.metrics.FOLD_CLASSES`, never a literal."""
+    classes = obs_metrics.FOLD_CLASSES
+    if pool.layout == Layout.BASELINE_ECC:
+        cream = "secded"
+    else:
+        cream = "parity" if pool.layout == Layout.PARITY else "none"
+    is_sec = (pages >= pool.boundary) & (pages < pool.num_rows)
+    cls = np.where(is_sec, classes.index("secded"), classes.index(cream))
+    cls = np.where(is_sec & (pages >= pool.daec_start),
+                   classes.index("daec"), cls)
+    return (4 * cls).astype(np.int32)
+
+
+def _status_counts(rows4: torch.Tensor, status: torch.Tensor
+                   ) -> torch.Tensor:
+    """Per-class ``(corrected, uncorrectable)`` counts, ``(len(FOLD_CLASSES),
+    2)`` int32 on the status's device: one histogram of ``row * 4 +
+    status`` (``index_add_``), then statuses 1 and 2 summed as corrected,
+    3 kept as uncorrectable."""
+    hist = torch.zeros(4 * len(obs_metrics.FOLD_CLASSES), dtype=torch.int32,
+                       device=status.device)
+    hist.index_add_(0, rows4 + status, torch.ones_like(status))
+    hist = hist.view(-1, 4)
+    return torch.stack([hist[:, secded.CORRECTED_DATA]
+                        + hist[:, secded.CORRECTED_CODE],
+                        hist[:, secded.DETECTED_UNCORRECTABLE]], dim=1)
 
 
 class Engine:
@@ -97,6 +145,24 @@ class Engine:
         self.steps = 0
         self._pending_migration: tuple[np.ndarray, np.ndarray] | None = None
         self._side_stream = None        # the migration's stream on the card
+        if obs_metrics.enabled():
+            # pre-create the acceptance-critical series at zero so every
+            # snapshot carries the full per-class matrix, errors or not
+            obs_metrics.touch_read_status()
+            mig = obs_metrics.counter(
+                obs_metrics.NAME_PAGES_MIGRATED,
+                "pages relocated by the migration engine", labels=("cls",))
+            for cls in obs_metrics.FOLD_CLASSES:
+                mig.labels(cls=cls)
+            obs_metrics.counter(
+                obs_metrics.NAME_DECODE_STEPS,
+                "batched decode steps executed")
+            obs_metrics.counter(
+                obs_metrics.NAME_TOKENS_DECODED,
+                "tokens decoded, by request tier", labels=("tier",))
+            obs_metrics.counter(
+                obs_metrics.NAME_PREFILLS, "prompt prefills executed")
+        obs_metrics.record_pool_capacity(pool, self.pool)
 
     # -- geometry shorthands -------------------------------------------------
     @property
@@ -175,10 +241,41 @@ class Engine:
         """
         pool = self.pool
         if isinstance(pool, PoolState) and pool.daec_rows == 0:
+            # the fused read bypasses the pool's verbs: record it here
+            pool.memprof_record("gather", phys, stream="decode")
             return mixed_ops.read_correct(pool.storage, self._ids(phys),
                                           pool.layout, pool.num_rows,
                                           pool.boundary)
         return pool.read(phys)
+
+    def _gather_pages_counts(self, phys: np.ndarray
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Metrics-on gather: the pages and the ``(len(FOLD_CLASSES), 2)``
+        per-class status counts the registry folds after the step.
+
+        A bare local pool with no DAEC tier and a layout other than PARITY
+        takes the mixed read with its status output — one launch, as the
+        plain gather — and its page ids and count rows go to the card in
+        one upload. A PARITY pool (whose status is the parity check, which
+        the mixed read does not run), a DAEC tier, a wrapped or a sharded
+        pool reads through ``pool.read(phys, status=True)``. Either way
+        one reduction (:func:`_status_counts`) makes the counts.
+        """
+        pool = self.pool
+        rows4 = _status_rows(pool, phys)
+        if not isinstance(pool, PoolState):
+            data, status = pool.read(phys, status=True)
+            return data, _status_counts(self._ids(rows4), status)
+        pool.memprof_record("gather", phys, stream="decode")
+        if pool.daec_rows or pool.layout == Layout.PARITY:
+            with obs_memprof.suspended():
+                data, status = pool.read(phys, status=True)
+            return data, _status_counts(self._ids(rows4), status)
+        both = self._ids(np.stack([phys, rows4]))
+        data, status = mixed_ops.read_correct(
+            pool.storage, both[0], pool.layout, pool.num_rows,
+            pool.boundary, status=True)
+        return data, _status_counts(both[1], status)
 
     def schedule_migration(self, src_pages, dst_pages) -> None:
         """Queue a page migration ``src -> dst`` to run beside the next
@@ -229,6 +326,14 @@ class Engine:
 
     # -- the serving loop ------------------------------------------------------
     def _do_prefill(self, slot: int, req: ServeRequest, sess) -> None:
+        with obs_tracing.span("engine.prefill", slot=slot,
+                              prompt=len(req.prompt), tier=req.tier):
+            self._do_prefill_impl(slot, req, sess)
+        if obs_metrics.enabled():
+            obs_metrics.counter(obs_metrics.NAME_PREFILLS,
+                                "prompt prefills executed").inc()
+
+    def _do_prefill_impl(self, slot: int, req: ServeRequest, sess) -> None:
         toks = self._ids(np.asarray(req.prompt)[None, :])
         logits, (ks, vs) = self.model.prefill(toks)
         pages = self._pack_fn(ks[:, 0].float(), vs[:, 0].float())
@@ -250,6 +355,8 @@ class Engine:
         model step (beside a queued migration), one page scatter. Returns
         requests that finished."""
         self.sched.ensure_step()
+        if obs_memprof.enabled():
+            obs_memprof.next_step()     # one profiler step per decode step
         rows = np.asarray([s.row if s is not None else -1
                            for s in self.sched.slots])
         active = rows >= 0
@@ -257,19 +364,42 @@ class Engine:
             return []
         lens = np.where(active, self._lens, 0).astype(np.int32)
         toks = np.where(active, self._toks, 0).astype(np.int32)
-        phys = self.kv.gather_phys(rows)                    # (B, L, maxB)
-        pages = self._gather_pages(phys.reshape(-1))        # ONE gather
-        migrated = self._start_migration()
-        _, nxt, cur_pages = self._attend_fn(pages, self._ids(lens),
-                                            self._ids(toks))
+        with obs_tracing.span("serve.router.dispatch",
+                              slots=int(active.sum())):
+            phys = self.kv.gather_phys(rows)                # (B, L, maxB)
+        counts = None
+        with obs_tracing.blocked_span("engine.step.gather",
+                                      pages=int(phys.size)) as hold:
+            if obs_metrics.enabled():
+                pages, counts = self._gather_pages_counts(phys.reshape(-1))
+            else:
+                pages = self._gather_pages(phys.reshape(-1))  # ONE gather
+            hold(pages)
+        pending = self._pending_migration
+        if pending is not None and isinstance(self.pool, ShardedPool):
+            # the pool's migrate counts the pages it moves
+            compute = obs_tracing.blocked_span(
+                "engine.step.compute_ring", ring_pages=int(pending[0].size))
+        else:
+            compute = obs_tracing.blocked_span("engine.step.compute")
+        with compute as hold:
+            migrated = self._start_migration()
+            _, nxt, cur_pages = self._attend_fn(pages, self._ids(lens),
+                                                self._ids(toks))
+            hold(nxt)
         if migrated is not None:
             torch.cuda.current_stream(self.device).wait_event(migrated)
-        cur_ids = self.kv.current_block_phys(rows, lens)    # (B, L)
-        self.vm.pools[self.pool_name] = self.pool.write(
-            cur_ids.reshape(-1), cur_pages)                 # ONE scatter
+        with obs_tracing.blocked_span("engine.step.scatter") as hold:
+            cur_ids = self.kv.current_block_phys(rows, lens)  # (B, L)
+            self.vm.pools[self.pool_name] = self.pool.write(
+                cur_ids.reshape(-1), cur_pages)             # ONE scatter
+            hold(self.pool.storage)
         nxt = nxt.cpu().numpy()
         self.steps += 1
+        if counts is not None:
+            obs_metrics.fold_read_status(counts)
         finished = []
+        tokens_by_tier: dict[str, int] = {}
         for slot in np.flatnonzero(active):
             sess = self.sched.slots[slot]
             sess.cache_len += 1
@@ -277,8 +407,18 @@ class Engine:
             sess.req.generated.append(sess.last_tok)
             self._lens[slot] = sess.cache_len
             self._toks[slot] = sess.last_tok
+            tier = sess.req.tier
+            tokens_by_tier[tier] = tokens_by_tier.get(tier, 0) + 1
             if len(sess.req.generated) >= sess.req.max_new:
                 finished.append(self.sched.finish(slot))
+        if obs_metrics.enabled():
+            obs_metrics.counter(obs_metrics.NAME_DECODE_STEPS,
+                                "batched decode steps executed").inc()
+            tok = obs_metrics.counter(
+                obs_metrics.NAME_TOKENS_DECODED,
+                "tokens decoded, by request tier", labels=("tier",))
+            for tier, n in tokens_by_tier.items():
+                tok.labels(tier=tier).inc(n)
         return finished
 
     def poll(self) -> list[ServeRequest]:

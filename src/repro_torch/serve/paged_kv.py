@@ -1,7 +1,7 @@
 """Paged-KV block tables on the CREAM data plane (paper §3.1 + §6.1/Fig. 8).
 
 Port of ``repro/serve/paged_kv.py``: host-side block tables, unchanged
-apart from torch dtypes and the telemetry calls (queued in ROADMAP).
+apart from torch dtypes.
 
 Paper anchor: Fig. 1's "caches tolerate loss" quadrant and the §6.1
 memcached/WebSearch capacity experiments, applied to the KV cache of a
@@ -199,11 +199,20 @@ class PagedKV:
     def preempt(self, row: int) -> int:
         """Swap the row's device pages to the VM host tier (KV preserved
         bit-exact); returns pages moved."""
+        from repro_torch.obs import metrics, tracing
+        tier = self._rows[row].tier
         vpns = [int(v) for v in self._table[row][self._table[row] >= 0]
                 if self._phys[v] >= 0 or self.vm.translate(
                     self.tenant, int(v)).pool is not None]
-        moved = self.vm.swap_out(self.tenant, vpns) if vpns else 0
+        with tracing.span("migrate.preempt_to_host", row=row, tier=tier,
+                          pages=len(vpns)):
+            moved = self.vm.swap_out(self.tenant, vpns) if vpns else 0
         self._sync(vpns)
+        if metrics.enabled():
+            metrics.counter(
+                metrics.NAME_PREEMPTIONS,
+                "sequences preempted to the host swap tier",
+                labels=("tier",)).labels(tier=tier).inc()
         return moved
 
     def restore(self, row: int) -> bool:
@@ -214,6 +223,7 @@ class PagedKV:
         mode controls — then retires the old mappings. False = not enough
         free frames (nothing changes; caller makes room and retries).
         """
+        from repro_torch.obs import metrics, tracing
         r = self._rows[row]
         vpns = self._table[row]
         off = np.argwhere((vpns >= 0) & (self._phys[np.clip(vpns, 0, None)]
@@ -226,12 +236,19 @@ class PagedKV:
                             pool=self.pool_name)
         if new is None:
             return False
-        data = self.vm.read(self.tenant, old)           # the page fault(s)
-        self.vm.write(self.tenant, new, data)
+        with tracing.span("migrate.restore_from_host", row=row, tier=r.tier,
+                          pages=len(old)):
+            data = self.vm.read(self.tenant, old)       # the page fault(s)
+            self.vm.write(self.tenant, new, data)
         self.vm.free(self.tenant, old)
         for ix, nv in zip(off, new):
             self._table[row][tuple(ix)] = nv
         self._sync(new)
+        if metrics.enabled():
+            metrics.counter(
+                metrics.NAME_RESTORES,
+                "preempted sequences restored to device frames",
+                labels=("tier",)).labels(tier=r.tier).inc()
         return True
 
     def refresh(self) -> dict:

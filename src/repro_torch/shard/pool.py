@@ -36,6 +36,14 @@ Writes and migrations update the storage in place (the reference donates
 it); :func:`repartition`, :func:`set_daec_rows`, :func:`scrub` and
 ``migrate(donate=False)`` and ``read_writeback`` work on copies and
 leave the input valid.
+
+Telemetry keeps the reference's names where the mechanism differs: each
+routed read / write counts one ``cream_shard_dispatch_total`` under its op
+and runs in a ``shard.fused.dispatch`` span; a migration counts its pages
+in ``cream_shard_ring_pages_total`` under a ``shard.migrate.ring`` span
+(a gather and scatter on one card, not a ``ppermute`` ring);
+CREAM-Lens gets one record per bank of each dispatch, against the bank's
+own geometry, on stream ``bank<s>``.
 """
 from __future__ import annotations
 
@@ -51,7 +59,40 @@ from repro_torch.core.layouts import (GROUP_ROWS, LANES, Layout,
 from repro_torch.core.pool import PoolState
 from repro_torch.kernels.common import resolve_device, upload
 from repro_torch.kernels.mixed import ops as mixed_ops
+from repro_torch.obs import memprof as obs_memprof
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.shard import router
+
+
+def _note_dispatch(op: str) -> None:
+    """Count one routed host-side dispatch through the shard data plane."""
+    if not obs_metrics.enabled():
+        return
+    obs_metrics.counter(
+        obs_metrics.NAME_SHARD_DISPATCH,
+        "routed dispatches through the sharded data plane",
+        labels=("op",)).labels(op=op).inc()
+
+
+def _memprof_routed(pool: "ShardedPool", op: str, pages,
+                    stream: str = "main") -> None:
+    """Feed one routed dispatch to CREAM-Lens, split per bank: each bank's
+    local ids against its own geometry (``rows_local`` rows,
+    ``boundary_local``), stream ``bank<s>`` (``<stream>/bank<s>`` off the
+    main stream), so the replay models ``S`` independent bank arrays."""
+    if not obs_memprof.enabled():
+        return
+    ids = pool_lib._host_ids(pool, pages)
+    shard, local = router.route_np(ids, pool.num_rows, pool.num_shards)
+    prefix = "" if stream == "main" else f"{stream}/"
+    for s in range(pool.num_shards):
+        loc = local[shard == s]
+        if loc.size:
+            obs_memprof.record(
+                op, loc, layout=pool.layout, num_rows=pool.rows_local,
+                boundary=pool.boundary_local, row_words=pool.row_words,
+                stream=f"{prefix}bank{s}")
 
 
 @dataclass
@@ -149,30 +190,23 @@ class ShardedPool:
         """Batch read of global page ids -> ``(n, page_words)`` int32, or
         ``(data, status (n,) int32)`` with ``status=True``."""
         ids = pool_lib._host_ids(self, pages)
-        if status or self.daec_rows_local:
-            data, st = _read_status(self, ids)
-            return (data, st) if status else data
-        return mixed_ops.read_correct_routed(
-            self.storage, upload(ids, self.device), self.layout,
-            self.num_rows, self.boundary, self.num_shards)
+        op = "read_status" if status else "read"
+        _note_dispatch(op)
+        _memprof_routed(self, "gather", ids)
+        with obs_tracing.span("shard.fused.dispatch", op=op,
+                              pages=int(ids.size), shards=self.num_shards):
+            return _read(self, ids, status)
 
     def write(self, pages, data, *, valid=None) -> "ShardedPool":
         """Code-maintaining batch write, in place; returns this pool.
         ``valid`` (optional ``(n,)`` bool) drops masked rows; of duplicate
         ids the last valid row lands."""
         ids = pool_lib._host_ids(self, pages)
-        if not ids.size:
-            return self
-        words = pool_lib._as_words(self, data, ids.size)
-        land = pool_lib._landing_rows(ids, valid)
-        shard, local = router.route_np(ids, self.num_rows, self.num_shards)
-        for s in range(self.num_shards):
-            sel = np.flatnonzero(land & (shard == s))
-            if sel.size:
-                pool_lib._write_in_place(
-                    self.bank(s), local[sel],
-                    words[upload(sel, self.device)])
-        return self
+        _note_dispatch("write")
+        _memprof_routed(self, "scatter", ids)
+        with obs_tracing.span("shard.fused.dispatch", op="write",
+                              pages=int(ids.size), shards=self.num_shards):
+            return _write(self, ids, data, valid)
 
     def read_writeback(self, pages):
         """Write-back read of global page ids (see
@@ -180,6 +214,8 @@ class ShardedPool:
         persists the corrections of the pages it owns -> ``(data, status,
         new_pool)``. Works on a copy: this pool stays valid."""
         ids = pool_lib._host_ids(self, pages)
+        _note_dispatch("read_writeback")
+        _memprof_routed(self, "gather", ids)
         copy = dataclasses.replace(self, storage=self.storage.clone())
         data, status = _read_status(copy, ids, pool_lib._writeback_in_place)
         return data, status, copy
@@ -198,6 +234,10 @@ class ShardedPool:
             return read_streams(self, pages)
         return write_streams(self, pages, data, valid=valid)
 
+    def memprof_record(self, op: str, pages, stream: str = "main") -> None:
+        """Feed one dispatch to CREAM-Lens, routed per bank."""
+        _memprof_routed(self, op, pages, stream)
+
     # -- control plane -------------------------------------------------------
     def evict_prediction(self, new_boundary: int) -> list[int]:
         return evicted_extra_pages(self, new_boundary)
@@ -212,6 +252,35 @@ class ShardedPool:
         """Sweep + repair every bank -> ``(new_pool, ScrubStats)``; leaves
         this pool valid. ``use_kernel`` is ignored, as for local pools."""
         return scrub(self)
+
+
+def _read(pool: "ShardedPool", ids: np.ndarray, status: bool = False):
+    """:meth:`ShardedPool.read` of validated ids, without its telemetry:
+    one router-fused mixed read, or with ``status`` (or a DAEC tier) the
+    bank-by-bank status read."""
+    if status or pool.daec_rows_local:
+        data, st = _read_status(pool, ids)
+        return (data, st) if status else data
+    return mixed_ops.read_correct_routed(
+        pool.storage, upload(ids, pool.device), pool.layout,
+        pool.num_rows, pool.boundary, pool.num_shards)
+
+
+def _write(pool: "ShardedPool", ids: np.ndarray, data, valid=None
+           ) -> "ShardedPool":
+    """:meth:`ShardedPool.write` of validated ids, without its telemetry:
+    each bank writes the last valid row of each of its pages in place."""
+    if not ids.size:
+        return pool
+    words = pool_lib._as_words(pool, data, ids.size)
+    land = pool_lib._landing_rows(ids, valid)
+    shard, local = router.route_np(ids, pool.num_rows, pool.num_shards)
+    for s in range(pool.num_shards):
+        sel = np.flatnonzero(land & (shard == s))
+        if sel.size:
+            pool_lib._write_in_place(pool.bank(s), local[sel],
+                                     words[upload(sel, pool.device)])
+    return pool
 
 
 def make_sharded_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
@@ -246,7 +315,7 @@ def make_sharded_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
 
 
 def _read_status(pool: ShardedPool, ids: np.ndarray,
-                 read=pool_lib.read_pages_any_status
+                 read=pool_lib._read_any_status
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bank-by-bank read with status through the local engine (DAEC and
     PARITY aware), assembled in batch order. ``read(bank, local_ids)``
@@ -291,7 +360,8 @@ def read_streams(pool: ShardedPool, pages) -> torch.Tensor:
     :func:`repro_torch.shard.router.plan_streams`). Each bank reads only
     its own ``n`` pages. Returns ``(S, n, page_words)``."""
     local = _stream_ids(pool, pages)
-    return torch.stack([pool.bank(s).read(local[s])
+    _memprof_routed(pool, "gather", pages, stream="streams")
+    return torch.stack([pool_lib._read_any_status(pool.bank(s), local[s])[0]
                         for s in range(pool.num_shards)])
 
 
@@ -300,9 +370,10 @@ def write_streams(pool: ShardedPool, pages, data, valid=None
     """Per-bank write of ``S`` aligned streams (see :func:`read_streams`):
     ``data`` ``(S, n, page_words)``, ``valid`` optional ``(S, n)`` bool."""
     local = _stream_ids(pool, pages)
+    _memprof_routed(pool, "scatter", pages, stream="streams")
     for s in range(pool.num_shards):
-        pool.bank(s).write(local[s], data[s],
-                           valid=None if valid is None else valid[s])
+        pool_lib._write_in_place(pool.bank(s), local[s], data[s],
+                                 None if valid is None else valid[s])
     return pool
 
 
@@ -319,10 +390,19 @@ def migrate_pages(pool: ShardedPool, src_pages, dst_pages,
     each lands in its destination's bank with a code-maintaining write.
     ``donate=False`` works on a copy and keeps ``pool`` valid.
     """
-    data = pool.read(src_pages)
-    target = pool if donate else dataclasses.replace(
-        pool, storage=pool.storage.clone())
-    return target.write(dst_pages, data)
+    src = pool_lib._host_ids(pool, src_pages)
+    dst = pool_lib._host_ids(pool, dst_pages)
+    if obs_metrics.enabled():
+        obs_metrics.counter(
+            obs_metrics.NAME_SHARD_RING_PAGES,
+            "pages exchanged over the ppermute migration ring"
+        ).inc(int(src.shape[0]))
+    with obs_tracing.span("shard.migrate.ring", pages=int(src.shape[0]),
+                          shards=pool.num_shards):
+        data = _read(pool, src)
+        target = pool if donate else dataclasses.replace(
+            pool, storage=pool.storage.clone())
+        return _write(target, dst, data)
 
 
 def evicted_extra_pages(pool: ShardedPool, new_boundary: int) -> list[int]:
@@ -350,8 +430,11 @@ def repartition(pool: ShardedPool, new_boundary: int
     info["evicted_extra_pages"] = evicted_extra_pages(pool, new_boundary)
     info["pages_reencoded"] = abs(new_boundary - old)
     nb_local = new_boundary // pool.num_shards
-    banks = [pool_lib.repartition(pool.bank(s), nb_local)[0].storage
-             for s in range(pool.num_shards)]
+    with obs_tracing.span("shard.repartition", old_boundary=old,
+                          new_boundary=new_boundary,
+                          shards=pool.num_shards), obs_memprof.suspended():
+        banks = [pool_lib.repartition(pool.bank(s), nb_local)[0].storage
+                 for s in range(pool.num_shards)]
     return dataclasses.replace(pool, storage=torch.stack(banks),
                                boundary_local=nb_local), info
 
@@ -370,8 +453,10 @@ def set_daec_rows(pool: ShardedPool, daec_rows: int) -> ShardedPool:
     n_local = daec_rows // S
     if n_local == pool.daec_rows_local:
         return pool
-    banks = [pool_lib.set_daec_rows(pool.bank(s), n_local).storage
-             for s in range(S)]
+    with obs_tracing.span("shard.set_daec_rows", old=pool.daec_rows,
+                          new=daec_rows, shards=S):
+        banks = [pool_lib.set_daec_rows(pool.bank(s), n_local).storage
+                 for s in range(S)]
     return dataclasses.replace(pool, storage=torch.stack(banks),
                                daec_rows_local=n_local)
 

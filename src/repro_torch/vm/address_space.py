@@ -32,6 +32,8 @@ from repro_torch.core.layouts import DEFAULT_ROW_WORDS, Layout
 from repro_torch.core.pool import PoolState, make_pool
 from repro_torch.core.protection import _ORDER, Protection
 from repro_torch.kernels.common import resolve_device, to_u32
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 
 
 def cream_protection(layout: Layout) -> Protection:
@@ -211,6 +213,7 @@ class VirtualMemory:
                               device=self.device)
         self.pools[name] = state
         self.allocators[name] = FrameAllocator(state)
+        obs_metrics.record_pool_capacity(name, state)
         return state
 
     def adopt_pool(self, name: str, state) -> None:
@@ -223,6 +226,7 @@ class VirtualMemory:
                              f"{self.device}")
         self.pools[name] = state
         self.allocators[name] = FrameAllocator(state)
+        obs_metrics.record_pool_capacity(name, state)
 
     def create_tenant(self, name: str,
                       default_reliability: Protection = Protection.NONE,
@@ -384,9 +388,20 @@ class VirtualMemory:
                 by_pool.setdefault(pte.pool, []).append((i, pte.phys))
         for pool_name, items in by_pool.items():
             idx = torch.as_tensor([i for i, _ in items], device=self.device)
-            self.pools[pool_name] = self.pools[pool_name].write(
-                [p for _, p in items], data[idx])
+            with obs_tracing.span("vm.write", pool=pool_name,
+                                  pages=len(items)):
+                self.pools[pool_name] = self.pools[pool_name].write(
+                    [p for _, p in items], data[idx])
             self.stats.device_writes += len(items)
+        if obs_metrics.enabled():
+            device_n = sum(len(items) for items in by_pool.values())
+            c = obs_metrics.counter(
+                obs_metrics.NAME_VM_WRITES,
+                "pages written through the VM data plane", labels=("tier",))
+            if device_n:
+                c.labels(tier="device").inc(device_n)
+            if len(vpns) - device_n:
+                c.labels(tier="host").inc(len(vpns) - device_n)
 
     def read(self, tenant: str, vpns) -> torch.Tensor:
         """Read ``(n, page_words)`` int32 through the page tables: host
@@ -414,8 +429,20 @@ class VirtualMemory:
                 blob.view(np.int32)).to(self.device)
         for pool_name, items in by_pool.items():
             idx = torch.as_tensor([i for i, _ in items], device=self.device)
-            out[idx] = self.pools[pool_name].read([p for _, p in items])
+            with obs_tracing.span("vm.read", pool=pool_name,
+                                  pages=len(items)):
+                out[idx] = self.pools[pool_name].read([p for _, p in items])
             self.stats.device_reads += len(items)
+        if obs_metrics.enabled():
+            device_n = sum(len(items) for items in by_pool.values())
+            c = obs_metrics.counter(
+                obs_metrics.NAME_VM_READS,
+                "pages read through the VM data plane (host = faults)",
+                labels=("tier",))
+            if device_n:
+                c.labels(tier="device").inc(device_n)
+            if host_items:
+                c.labels(tier="host").inc(len(host_items))
         return out
 
     # -- swap tier -----------------------------------------------------------

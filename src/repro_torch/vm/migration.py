@@ -32,6 +32,8 @@ from repro_torch.core.pool import PoolState
 from repro_torch.core.protection import at_least
 from repro_torch.kernels.common import to_u32
 from repro_torch.kernels.migrate import ops as migrate_ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.vm.address_space import PTE, VirtualMemory, cream_protection
 
 
@@ -115,6 +117,7 @@ class MigrationEngine:
         batches grouped by (source pool, reliability class).
         """
         vm = self.vm
+        host_before = self.stats.to_host
         by_pool: dict[str, list[tuple[int, int]]] = {}
         host = None                   # device-to-host copy, on first overflow
         groups: dict[tuple[str | None, object], list[int]] = {}
@@ -153,6 +156,23 @@ class MigrationEngine:
                                data[idx], sub_codes)
         self.stats.pages_moved += len(victims)
         self.stats.bytes_moved += len(victims) * vm.page_bytes
+        if obs_metrics.enabled():
+            c = obs_metrics.counter(
+                obs_metrics.NAME_PAGES_MIGRATED,
+                "pages relocated by the migration engine",
+                labels=("cls",))
+            per_cls: dict[str, int] = {}
+            for _, _, pte in victims:
+                key = pte.reliability.value
+                per_cls[key] = per_cls.get(key, 0) + 1
+            for cls, n in per_cls.items():
+                c.labels(cls=cls).inc(n)
+            overflow = self.stats.to_host - host_before
+            if overflow:
+                obs_metrics.counter(
+                    obs_metrics.NAME_MIGRATION_TO_HOST,
+                    "migrated pages that overflowed to the host swap tier"
+                ).labels().inc(overflow)
 
     # -- ad-hoc migration ----------------------------------------------------
     def relocate(self, tenant: str, vpns, avoid_pool: str | None = None
@@ -160,6 +180,13 @@ class MigrationEngine:
         """Move pages off their current frames (e.g. away from a weakening
         pool, or up to a stronger class), preferring other pools; host swap
         on overflow. Returns the number of device-resident pages moved."""
+        vpns = list(vpns)
+        with obs_tracing.span("vm.migration.relocate", tenant=tenant,
+                              pages=len(vpns)):
+            return self._relocate(tenant, vpns, avoid_pool)
+
+    def _relocate(self, tenant: str, vpns: list, avoid_pool: str | None
+                  ) -> int:
         vm = self.vm
         t0 = time.perf_counter()
         space = vm.tenants[tenant]
@@ -216,6 +243,14 @@ class MigrationEngine:
         state = vm.pools[pool_name]
         alloc = vm.allocators[pool_name]
         old = state.boundary
+        with obs_tracing.span("vm.migration.repartition", pool=pool_name,
+                              old_boundary=old, new_boundary=new_boundary):
+            return self._repartition(pool_name, new_boundary, state, alloc,
+                                     old)
+
+    def _repartition(self, pool_name: str, new_boundary: int, state, alloc,
+                     old: int) -> dict:
+        vm = self.vm
         # validate before touching any mapping
         if new_boundary % state.boundary_step \
                 or not 0 <= new_boundary <= state.num_rows:
@@ -265,4 +300,5 @@ class MigrationEngine:
         info["to_host"] = self.stats.to_host - host_before
         self.stats.transactions += 1
         self.stats.seconds += time.perf_counter() - t0
+        obs_metrics.record_pool_capacity(pool_name, vm.pools[pool_name])
         return info

@@ -1,5 +1,5 @@
 """The port stands alone: it loads no JAX, imports nothing of the reference
-package, and never runs on the CPU unless asked.
+package or of ``benchmarks/``, and never runs on the CPU unless asked.
 """
 import os
 import pkgutil
@@ -20,13 +20,15 @@ from repro_torch.objcache.hash_index import make_index
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, SequenceCache
 from repro_torch.shard import make_sharded_pool
+from repro_torch.tools.creamtop import main as creamtop_main
 from repro_torch.vm.address_space import VirtualMemory
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
-    r"from\s+repro(\.|\s)\S*\s*import)", re.M)
+    r"from\s+repro(\.|\s)\S*\s*import|import\s+benchmarks\b|"
+    r"from\s+benchmarks\b)", re.M)
 CFG = ModelConfig(name="serve-test", family="dense", num_layers=2,
                   d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
                   vocab_size=256, head_dim=16, dtype="float32")
@@ -56,13 +58,17 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.core.regions", "repro_torch.configs.registry",
             "repro_torch.configs.starcoder2_7b",
             "repro_torch.configs.musicgen_large",
-            "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.launch.serve", "repro_torch.obs.metrics",
+            "repro_torch.obs.tracing", "repro_torch.obs.dashboard",
+            "repro_torch.obs.memprof", "repro_torch.obs.dram_sim",
+            "repro_torch.tools.creamtop"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
-            "             or m == 'repro' or m.startswith('repro.'))\n"
+            "             or m == 'repro' or m.startswith('repro.')\n"
+            "             or m.split('.')[0] == 'benchmarks')\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(),
                    cwd=ROOT, timeout=120)
@@ -78,10 +84,14 @@ def test_no_source_imports_jax_or_the_reference(path):
 def test_forbidden_pattern_catches_what_it_must():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
                  "import repro.core", "from repro.core import pool",
-                 "from repro import serve", "  import repro"):
+                 "from repro import serve", "  import repro",
+                 "import benchmarks.dram_sim", "from benchmarks import x",
+                 "from benchmarks.dram_sim import BankArray"):
         assert FORBIDDEN.search(line), line
     for line in ("import repro_torch", "from repro_torch.core import pool",
-                 "# a comment naming repro.core"):
+                 "# a comment naming repro.core",
+                 "from repro_torch.obs import dram_sim",
+                 "# the reference is benchmarks/dram_sim.py"):
         assert not FORBIDDEN.search(line), line
 
 
@@ -95,9 +105,10 @@ def test_forbidden_pattern_catches_what_it_must():
     lambda: make_sharded_pool(32, num_shards=4),
     lambda: RegionManager(),
     lambda: serve_main(["--arch", "qwen3-0.6b", "--smoke"]),
+    lambda: creamtop_main(["--demo"]),
 ], ids=["Engine", "VirtualMemory", "make_pool", "make_index", "build_model",
         "SequenceCache", "make_sharded_pool", "RegionManager",
-        "launch.serve"])
+        "launch.serve", "creamtop.demo"])
 def test_entry_points_without_cuda_raise(entry, monkeypatch):
     """No device and no CUDA: raise, never fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -105,22 +116,36 @@ def test_entry_points_without_cuda_raise(entry, monkeypatch):
         entry()
 
 
-def test_serve_launcher_cli_imports_no_jax():
-    """``python -m repro_torch.launch.serve --help`` with ``jax`` and the
-    reference package made unimportable: the CLI's import chain needs
-    neither."""
+def _help_without_jax(module: str) -> str:
+    """``python -m <module> --help`` with ``jax``, the reference package
+    and ``benchmarks`` made unimportable -> its standard output."""
     code = ("import runpy, sys\n"
-            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
             "    sys.modules[name] = None   # any import of it now raises\n"
-            "sys.argv = ['repro_torch.launch.serve', '--help']\n"
-            "runpy.run_module('repro_torch.launch.serve', "
-            "run_name='__main__')\n")
+            f"sys.argv = [{module!r}, '--help']\n"
+            f"runpy.run_module({module!r}, run_name='__main__')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=_env(), cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_serve_launcher_cli_imports_no_jax():
+    """``python -m repro_torch.launch.serve --help``: the CLI's import
+    chain needs neither JAX nor the reference package."""
+    out = _help_without_jax("repro_torch.launch.serve")
     for flag in ("--arch", "--smoke", "--pool-mode", "--secded-rows",
                  "--device"):
-        assert flag in proc.stdout
+        assert flag in out
+
+
+def test_creamtop_cli_imports_no_jax():
+    """``python -m repro_torch.tools.creamtop --help``: the dashboard's
+    import chain needs neither JAX, the reference package nor
+    ``benchmarks``."""
+    out = _help_without_jax("repro_torch.tools.creamtop")
+    for flag in ("--bench", "--snapshot", "--demo", "--device"):
+        assert flag in out
 
 
 def test_chip_smoke_without_cuda_exits_nonzero_and_prints_no_result():
