@@ -176,7 +176,53 @@ exits nonzero:
                   flips in 16 pages the next step reads: the folded
                   secded/corrected count equals the card's status read of
                   the same ids; then one double-bit flip: one
-                  uncorrectable, and the secded SLO breached.
+                  uncorrectable, and the secded SLO breached. Last the
+                  serve requests on serve-shard's pool (4 banks) with
+                  metrics on, the first on the paid tier: every step's
+                  metrics-on gather one mixed_read_correct_routed launch
+                  (its status output) with no bank-by-bank secded_decode,
+                  its folded counts equal to a bank-by-bank status read of
+                  the same ids (with single-bit flips planted in 16 SECDED
+                  pages a step reads), the planes-off tokens.
+ 28. softecc      SoftECC (the Virtualized-ECC baseline): one seeded
+                  write / flip / read / scrub sequence on a 72-row pool on
+                  the card and on the CPU, bit for bit; then 16380 rows of
+                  W = 2048 (the cache phases' 16384 cut to a multiple of 9)
+                  on the card: every page written, 16 single-bit flips in
+                  data rows and code slices, a scrub whose census is the
+                  planted flips and whose storage is the unflipped pool's;
+                  the per-layout DRAM operations of plan_line_access /
+                  count_device_ops and plan_line_ops over a seeded trace;
+ 29. train-reference  tests/test_fault_tolerance.py's TINY config (float32)
+                  trained 4 steps through the port's Trainer on the card
+                  and the CPU from the same weights and batches: losses and
+                  grad norms within 1e-4 relative, warm restores
+                  bit-identical, a checkpoint round trip bit-exact on the
+                  card and restored on the CPU;
+ 30. train        qwen3-0.6b from the registry at full width (28 layers,
+                  d 1024, vocab 151936, bfloat16, 596.0 M parameters)
+                  trained through repro_torch.launch.train.main in-process
+                  (20 steps, sequence 128, batch 8, saves at 10 and 20),
+                  then the launcher again on the same directory (resumed at
+                  step 20, one step), then the recovery ladder on a
+                  make_trainer of the same config: 5 flips in the 5.00 GiB
+                  moment pool corrected by the scrub kernel, a warm restart
+                  with the moments bit-identical, a targeted restore and a
+                  cold restart; the pool's kernels held against their plain
+                  versions at its full 582,080 rows, chunk by chunk on the
+                  card: the snapshot's code lane against the plain encode,
+                  the rung-1 scrub's storage and per-beat status against
+                  the plain sweep of the flipped pool, and the warm
+                  restore's decode (at its shape, over the flipped pool)
+                  against the plain decode; step ms, tokens/s (all timed
+                  steps' tokens over their summed times), peak memory,
+                  snapshot and scrub ms, each save's and restore's seconds
+                  and size;
+ 31. train-lm     examples/train_lm.py's scenario: the 110 M float32 LM with
+                  batch 4 (microbatch 2, remat "block"), 5 flips in the
+                  moment pool at mid-run corrected by the scrub (its
+                  storage and status equal to the plain sweep's), the loss
+                  before and after.
 
 Phase 2 also holds parity8_write, the PARITY pool's one-pass write,
 bit-exact against its plain version and against the eager chain it
@@ -199,7 +245,9 @@ worst SECDED status from the same launch) on the mixed pool with its
 planted flips, data and status bit-exact, every status present, timed
 with the wrapper's zero fill beside the data-only read. It holds the
 router-fused mixed read bit-exact on every page id of the serve-shard
-pool and of a 16384-row pool in 8 banks, with planted flips; and
+pool and of a 16384-row pool in 8 banks, with planted flips, and its
+status output on the serve-shard pool (data and status bit-exact, every
+status present, timed beside the status-free launch); and
 ecc_matmul at qwen3-0.6b's MLP shapes over 4096 tokens and 4, a ragged
 shape, the decode threshold and the reference sweep's, with single
 data-bit flips in a seeded 1 % of the weight beats and some code-bit
@@ -213,7 +261,8 @@ clock), torch.matmul of the clean A beside it.
 Then the card's name and power limit, one JSON line listing every kernel
 with its launches on the serve, serve-shard, cache, campaign, regions,
 writeback, launch-serve, starcoder2, musicgen, prefill-long, seqcache,
-ecc-mlp and telemetry phases and its phase-2 numbers,
+ecc-mlp, telemetry, softecc, train and train-lm phases and its phase-2
+numbers,
 and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 float32 products are full float32.
@@ -339,6 +388,19 @@ def emit(obj: dict) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are a check's (a kernel run again beside its plain
+    version), not the main path's: the launch counts are put back after."""
+    from repro_torch.kernels import common
+    saved = dict(common.LAUNCHES)
+    try:
+        yield
+    finally:
+        common.LAUNCHES.clear()
+        common.LAUNCHES.update(saved)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -1511,7 +1573,132 @@ def phase_telemetry(torch, np, tok_c, off_events) -> tuple[dict, dict]:
     reset_planes()
     del eng
     torch.cuda.empty_cache()
+    out["serve_shard"] = telemetry_shard(torch, np, tok_c)
+    for k, v in out["serve_shard"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
     return out, launches
+
+
+UPLOAD_REPS = 200          # timed uploads of one gather's count rows
+SHARD_FLIP_AT = 6          # decode step before which telemetry-shard plants
+
+
+def telemetry_shard(torch, np, tok_c) -> dict:
+    """The serve requests on serve-shard's pool (4 banks, 1600 rows,
+    InterWrap, boundary 1280) with the metrics plane on, the first request
+    on the paid tier (its KV on SECDED frames, so the gathers decode), and
+    before decode step SHARD_FLIP_AT single-bit flips in FLIP_PAGES
+    SECDED pages that step reads. Every decode step's metrics-on gather
+    must be one mixed_read_correct_routed launch (the status output) with
+    no bank-by-bank secded_decode or local mixed read, and its folded
+    counts must equal those of a bank-by-bank status read of the same ids
+    (the check's launches are not the path's); the tokens must be the
+    planes-off ones."""
+    from repro_torch import obs
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core.layouts import Layout
+    from repro_torch.kernels import common
+    from repro_torch.serve import Engine
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.shard import route_np
+    from repro_torch.shard import pool as shard_pool
+    from repro_torch.vm import VirtualMemory
+    m = obs.metrics
+    reset_planes()
+    set_planes(metrics=True)
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    vm = VirtualMemory(row_words=W, device=DEVICE)
+    pool = vm.add_pool("kv", NUM_ROWS, Layout.INTERWRAP,
+                       boundary=SHARD_BOUNDARY, shards=SHARDS)
+    check(pool.fused_status, "serve-shard pool takes no fused status read")
+    eng = Engine(cfg, max_batch=B, max_len=MAX_LEN, vm=vm, pool="kv",
+                 seed=SEED)
+    per_gather, mismatches, corrected, last = [], [], [0], [None]
+    gather = eng._gather_pages_counts
+    kinds = ("mixed_read_correct_routed", "secded_decode",
+             "mixed_read_correct")
+
+    def counted(phys):
+        last[0] = phys
+        before = dict(common.LAUNCHES)
+        data, counts = gather(phys)
+        per_gather.append(tuple(common.LAUNCHES.get(k, 0) - before.get(k, 0)
+                                for k in kinds))
+        saved = dict(common.LAUNCHES)
+        _, st = shard_pool._read_status(eng.pool, np.asarray(phys, np.int64))
+        want = engine_mod._status_counts(
+            torch.as_tensor(engine_mod._status_rows(eng.pool, phys),
+                            device=st.device), st)
+        if not torch.equal(counts, want):
+            mismatches.append((counts.tolist(), want.tolist()))
+        corrected[0] += int(want[m.FOLD_CLASSES.index("secded"), 0])
+        common.LAUNCHES.clear()
+        common.LAUNCHES.update(saved)
+        return data, counts
+
+    eng._gather_pages_counts = counted
+    reqs = requests(np, cfg.vocab_size)
+    for i, r in enumerate(reqs):
+        r.tier = "paid" if i == 0 else "batch"
+        eng.submit(r)
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    t0 = time.perf_counter()
+    planted = 0
+    while eng.sched.has_work():
+        if not planted and eng.steps == SHARD_FLIP_AT:
+            eng.sched.ensure_step()
+            rows = np.asarray([s.row if s is not None else -1
+                               for s in eng.sched.slots])
+            phys = eng.kv.gather_phys(rows).reshape(-1)
+            ids = np.unique(phys[(phys >= pool.boundary)
+                                 & (phys < pool.num_rows)])
+            rng = np.random.default_rng(SEED + 31)
+            chosen = rng.choice(ids, min(FLIP_PAGES, ids.size),
+                                replace=False)
+            bank, local = route_np(chosen, pool.num_rows, pool.num_shards)
+            for k, (b, loc) in enumerate(zip(bank, local)):
+                pool.storage[int(b), int(loc), k % 8,
+                             int(rng.integers(0, W))] ^= \
+                    1 << int(rng.integers(0, 31))
+            planted = int(chosen.size)
+        eng.poll()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    folded = m.REGISTRY.value(m.NAME_READ_STATUS, cls="secded",
+                              status="corrected")
+    reset_planes()
+    check([r.generated for r in reqs] == tok_c,
+          "telemetry serve-shard tokens differ from planes off")
+    check(len(per_gather) == eng.steps and set(per_gather) == {(1, 0, 0)},
+          f"metrics-on gathers (routed, secded_decode, mixed): "
+          f"{sorted(set(per_gather))} over {len(per_gather)} for "
+          f"{eng.steps} steps")
+    check(not mismatches, f"folded counts != status read: {mismatches[:2]}")
+    check(planted > 0 and folded == corrected[0] > 0,
+          f"{planted} planted, folded secded/corrected {folded}, status "
+          f"read {corrected[0]}")
+    # the gather's count rows go up apart from the page ids (which the
+    # pool's read uploads): that upload's host time, to its end on the card
+    rows4 = engine_mod._status_rows(pool, last[0])
+    up = []
+    for _ in range(UPLOAD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._ids(rows4)
+        torch.cuda.synchronize()
+        up.append(time.perf_counter() - t0)
+    del eng, pool, vm
+    torch.cuda.empty_cache()
+    return dict(banks=SHARDS, rows=NUM_ROWS, boundary=SHARD_BOUNDARY,
+                decode_steps=len(per_gather), tokens_equal=True,
+                routed_status_gathers=len(per_gather),
+                planted_singles=planted, folded_corrected=folded,
+                status_read_corrected=corrected[0], wall_s=wall,
+                step_ms=wall / len(per_gather) * 1e3,
+                count_rows_upload_ms=statistics.median(up) * 1e3,
+                launches=launches)
 
 
 def device_breakdown(prof, window_ms: float, per: int = 1,
@@ -2482,7 +2669,9 @@ def phase_routed_kernel(torch, np, dev) -> dict:
     and at 16384 rows in 8 banks (boundary 8192) on every page id, with
     planted flips in the SECDED rows: bit-exact against the plain version.
     Timed on the serve-shard pool; the yardstick is the uncorrected
-    advanced-indexing gather."""
+    advanced-indexing gather. On the serve-shard pool also its status
+    output: data and status bit-exact, every status present, its time
+    beside the status-free launch's."""
     from repro_torch.core.layouts import (REGION_SECDED, Layout, page_coords,
                                           total_pages)
     from repro_torch.kernels.mixed import ops, ref
@@ -2525,6 +2714,28 @@ def phase_routed_kernel(torch, np, dev) -> dict:
                      library_ms=median_ms(lib, 20),
                      bound=bound_ms(4 * (2 * n * D + n_sec * W + n),
                                     48 * n_sec * D // 2))
+            # the status output (the sharded status read and the metrics-on
+            # gather): data and per-page worst status bit-exact, every
+            # status present, timed beside the status-free launch
+            st_k = ops.read_correct_routed(*args, status=True)
+            st_p = ref.read_correct_routed(*args, status=True)
+            torch.cuda.synchronize()
+            counts = torch.bincount(st_k[1], minlength=4).tolist()
+            check(all(counts), f"routed read statuses {counts}")
+            check(torch.equal(st_k[0], got), "status changed the data")
+            status_ms = median_ms(
+                lambda: ops.read_correct_routed(*args, status=True), 20)
+            r["status_variant"] = dict(
+                max_abs_err=max_abs_err(st_k, st_p), status_pages=counts,
+                ms=status_ms,
+                plain_ms=median_ms(
+                    lambda: ref.read_correct_routed(*args, status=True), 3),
+                data_only_ms=r["ms"], change=status_ms / r["ms"] - 1,
+                bound=bound_ms(4 * (2 * n * D + n_sec * W + 2 * n),
+                               48 * n_sec * D // 2))
+            check(r["status_variant"]["max_abs_err"] == 0,
+                  "routed read with status disagrees with its plain version")
+            del st_k, st_p
         else:
             r.update(ms=median_ms(lambda: ops.read_correct_routed(*args), 5))
         shapes[name] = r
@@ -3477,6 +3688,532 @@ def phase_serve_musicgen(torch, np) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-31: SoftECC and the training path
+# ---------------------------------------------------------------------------
+
+#: the cache phases' 16384 rows, cut to a multiple of SoftECC's 9-row group
+SOFTECC_ROWS = 16380
+SOFTECC_SMALL = 72         # rows of the card-vs-CPU SoftECC pool
+SOFTECC_FLIPS = 16         # single-bit flips planted in the large pool
+SOFTECC_LINES = 65536      # line accesses of the plan_line_ops trace
+SOFTECC_CACHE_LINES = 512  # code lines the LLC lends SoftECC
+
+
+def softecc_sequence(torch, np, device) -> dict:
+    """A SoftECC pool of SOFTECC_SMALL rows at W on ``device``: seeded
+    pages written, a data-bit single, a code-bit single and a same-beat
+    double planted, every page read, then a scrub -> host copies of the
+    reads, statuses, stats and storage."""
+    from repro_torch.core import softecc
+    from repro_torch.kernels.common import to_u32
+    rng = np.random.default_rng(SEED + 40)
+    st = softecc.make_softecc(SOFTECC_SMALL, W, device=device)
+    data = rng.integers(0, 2**32, (st.num_pages, st.page_words),
+                        dtype=np.uint32)
+    st = softecc.write_pages(st, np.arange(st.num_pages), data)
+    st.storage[0, 3, 17] ^= 1 << 5                    # page 0: data bit
+    st.storage[8, 2, 9] ^= 1 << 30                    # page 2's codes
+    st.storage[10, 1, 4] ^= 0b11 << 7                 # page 9: one beat
+    reads, status = softecc.read_pages(st, np.arange(st.num_pages))
+    st2, stats = softecc.scrub(st)
+    return dict(reads=to_u32(reads), status=status.cpu().numpy(),
+                stats=stats, storage=to_u32(st2.storage))
+
+
+def phase_softecc(torch, np) -> tuple[dict, dict]:
+    """SoftECC (the Virtualized-ECC baseline): the same seeded sequence on
+    a SOFTECC_SMALL-row pool on the card and the CPU, bit for bit; then at
+    the cache phases' scale (SOFTECC_ROWS rows of W) on the card: every
+    page written, SOFTECC_FLIPS single-bit flips planted in distinct pages
+    (data rows and code slices), a scrub whose census is exactly the
+    planted flips and whose storage is the unflipped pool's, and seeded
+    pages' code slices against the CPU plain encode. Then the access
+    accounting: per layout the DRAM operations of a line read and write
+    (plan_line_access / count_device_ops, regular and extra pages) and
+    the parallelism groups, and plan_line_ops over a seeded trace with an
+    LLC code cache."""
+    from repro_torch.core import layouts, softecc
+    from repro_torch.kernels import common
+    from repro_torch.kernels.secded import ref as secded_ref
+    card = softecc_sequence(torch, np, DEVICE)
+    host = softecc_sequence(torch, np, "cpu")
+    check(card["stats"] == host["stats"] == {"corrected_pages": 2,
+                                              "uncorrectable_pages": 1},
+          f"SoftECC scrub stats {card['stats']} / {host['stats']}")
+    for k in ("reads", "status", "storage"):
+        check(np.array_equal(card[k], host[k]), f"SoftECC {k}: card != CPU")
+    rng = np.random.default_rng(SEED + 41)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    st = softecc.make_softecc(SOFTECC_ROWS, W, device=DEVICE)
+    n = st.num_pages
+    data = torch.randint(-2**31, 2**31, (n, st.page_words), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = softecc.write_pages(st, np.arange(n), data)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    clean = st.storage.clone()
+    pages = rng.choice(n, SOFTECC_FLIPS, replace=False)
+    for i, page in enumerate(pages):
+        data_row, code_row, _ = softecc._locate(st, int(page))
+        w, b = int(rng.integers(0, W)), int(rng.integers(0, 31))
+        if i % 2:                       # a bit of the page's code slice
+            st.storage[code_row, int(page) % 8, w] ^= 1 << b
+        else:
+            st.storage[data_row, int(rng.integers(0, 8)), w] ^= 1 << b
+    got, status = softecc.read_pages(st, pages)
+    check(torch.equal(got, data[torch.as_tensor(pages, device=DEVICE)]),
+          "SoftECC read did not correct the planted flips")
+    check(sorted(set(status.tolist())) == [1, 2],
+          f"SoftECC statuses {status.tolist()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st2, stats = softecc.scrub(st)
+    torch.cuda.synchronize()
+    scrub_s = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    check(stats == {"corrected_pages": SOFTECC_FLIPS,
+                    "uncorrectable_pages": 0},
+          f"SoftECC census {stats} for {SOFTECC_FLIPS} planted flips")
+    check(torch.equal(st2.storage, clean), "scrubbed pool != unflipped pool")
+    sample = rng.choice(n, 64, replace=False)
+    codes = torch.stack([softecc._code_slice(st2, int(p)) for p in sample])
+    check(torch.equal(codes.cpu(), secded_ref.encode(
+        data[torch.as_tensor(sample, device=DEVICE)].cpu())),
+          "SoftECC codes differ from the CPU plain encode")
+    del st, st2, clean, data, got
+    torch.cuda.empty_cache()
+    acct = {}
+    for layout in layouts.Layout:
+        rows = 64
+        extra = layouts.extra_page_count(layout, rows)
+        acct[layout.value] = dict(
+            parallelism_groups=layouts.parallelism_groups(layout),
+            read_ops=layouts.count_device_ops(layout, rows, 3, False),
+            write_ops=layouts.count_device_ops(layout, rows, 3, True),
+            read_accesses=len(layouts.plan_line_access(layout, rows, 3,
+                                                       False)),
+            extra_read_ops=layouts.count_device_ops(layout, rows, rows,
+                                                    False) if extra else None,
+            extra_write_ops=layouts.count_device_ops(layout, rows, rows,
+                                                     True) if extra else None)
+    cache = softecc.CodeCache(SOFTECC_CACHE_LINES)
+    ops = {"read": 0, "write": 0}
+    trace = rng.integers(0, n, SOFTECC_LINES)
+    writes = rng.random(SOFTECC_LINES) < 0.3
+    for page, line, wr in zip(trace, rng.integers(0, 128, SOFTECC_LINES),
+                              writes):
+        ops["write" if wr else "read"] += softecc.plan_line_ops(
+            int(page), int(line), bool(wr), cache)
+    return dict(rows=SOFTECC_ROWS, row_words=W, pages=n,
+                pool_gib=SOFTECC_ROWS * 8 * W * 4 / 2**30,
+                card_equals_cpu=dict(rows=SOFTECC_SMALL, **card["stats"]),
+                planted=SOFTECC_FLIPS, census=stats, write_s=write_s,
+                scrub_s=scrub_s, layouts=acct,
+                line_ops=dict(lines=SOFTECC_LINES,
+                              cache_lines=SOFTECC_CACHE_LINES,
+                              hits=cache.hits, misses=cache.misses,
+                              ops_per_line=(ops["read"] + ops["write"])
+                              / SOFTECC_LINES, **ops),
+                launches=launches), launches
+
+
+TINY_TRAIN = dict(name="tiny-ft", family="dense", num_layers=2, d_model=64,
+                  num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                  head_dim=16, dtype="float32")
+
+
+def same_tree(torch, a, b) -> bool:
+    """Two trees of tensors with equal paths and bit-identical leaves."""
+    from repro_torch.distributed.sharding import tree_paths
+    fa, fb = tree_paths(a), tree_paths(b)
+    return list(fa) == list(fb) and all(
+        x.dtype == fb[k].dtype and torch.equal(x.cpu(), fb[k].cpu())
+        for k, x in fa.items())
+
+
+def phase_train_reference(torch, np) -> dict:
+    """tests/test_fault_tolerance.py's TINY config (float32) trained 4 steps
+    through the port's Trainer on the card and on the CPU from the same
+    weights (drawn on the CPU, loaded on the card) and the same batches:
+    losses and grad norms within 1e-4 relative; on each device a warm
+    restore gives back the snapshotted moments bit for bit; a checkpoint
+    saved on the card restores bit-exact on the card and on the CPU."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import ModelConfig, TrainConfig
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.train.trainer import make_trainer
+    cfg = ModelConfig(**TINY_TRAIN)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=40,
+                       scrub_every=2, checkpoint_every=0)
+    ck = common_build() / "train_reference_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    host = make_trainer(cfg, tcfg, seq_len=32, global_batch=4, device="cpu")
+    card = make_trainer(cfg, tcfg, seq_len=32, global_batch=4, device=DEVICE,
+                        ckpt_dir=str(ck))
+    card.load_params(tree_map(lambda t: t.clone(), host.params))
+    logs = {"cpu": host.run(4), "card": card.run(4)}
+    rel = {k: max(abs(a[k] - b[k]) / abs(b[k])
+                  for a, b in zip(logs["card"], logs["cpu"]))
+           for k in ("loss", "grad_norm")}
+    check(max(rel.values()) <= 1e-4, f"card vs CPU training: {rel}")
+    warm = {}
+    for name, tr in (("card", card), ("cpu", host)):
+        tr.snapshot_moments()
+        before = (tree_map(torch.clone, tr.opt_state.m),
+                  tree_map(torch.clone, tr.opt_state.v))
+        worst = tr.warm_restore()
+        warm[name] = worst
+        check(worst == 0 and same_tree(torch, before[0], tr.opt_state.m)
+              and same_tree(torch, before[1], tr.opt_state.v),
+              f"{name}: warm restore is not bit-identical (worst {worst})")
+    card.save()
+    tree = card._ckpt_tree()
+    back, rep = card.checkpointer.restore(card.step, like=tree)
+    check(rep.clean and same_tree(torch, back, tree),
+          "card checkpoint round trip is not bit-exact")
+    flat, rep2 = Checkpointer(str(ck), device="cpu").restore(card.step)
+    check(rep2.clean and same_tree(torch, flat, tree),
+          "the card's checkpoint restores differently on the CPU")
+    shutil.rmtree(ck, ignore_errors=True)
+    return dict(steps=4, rel_err=rel, losses={k: [r["loss"] for r in v]
+                                              for k, v in logs.items()},
+                warm_restore_worst=warm, checkpoint_bit_exact=True)
+
+
+def common_build() -> Path:
+    from repro_torch.kernels import common
+    common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return common.BUILD_DIR
+
+
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_STEPS = 20           # the reference launcher's default
+TRAIN_RESUME_STEPS = 1     # the resumed launcher run's steps (one save)
+TRAIN_FLIPS = 5            # bit flips the recovery ladder's scrub repairs
+PLAIN_ROWS = 32768         # pool rows the plain versions take at once
+
+
+def plain_chunks(rows: int):
+    """``(start, stop)`` spans of PLAIN_ROWS rows covering ``rows``."""
+    return ((a, min(a + PLAIN_ROWS, rows)) for a in range(0, rows, PLAIN_ROWS))
+
+
+def hold_pool_codes(torch, storage) -> int:
+    """Every row's code lane of a whole-SECDED pool (written by the main
+    path's one secded_encode launch over all its pages) against the plain
+    encode of the row's data lanes, chunk by chunk on the card. A SECDED
+    row is its page: page p's data is row p's 8 lanes. -> rows held."""
+    from repro_torch.kernels.secded import ref as secded_ref
+    R = storage.shape[0]
+    for a, b in plain_chunks(R):
+        want = secded_ref.encode(storage[a:b, :8].reshape(b - a, -1))
+        check(torch.equal(want, storage[a:b, 8]),
+              f"pool rows {a}:{b}: code lane != plain encode")
+    return R
+
+
+def hold_scrub(torch, flipped, scrubbed) -> list:
+    """The main path's scrub of a whole-SECDED pool (``flipped`` ->
+    ``scrubbed``, one scrub_rows launch over every row) against the plain
+    sweep of the same rows, chunk by chunk on the card: equal storage. The
+    kernel runs once more over all of ``flipped`` (not counted) for its
+    per-beat status, which must equal the plain one. -> status histogram
+    [clean, data fixed, code fixed, uncorrectable]."""
+    from repro_torch.kernels.scrub import ops as scrub_ops
+    from repro_torch.kernels.scrub import ref as scrub_ref
+    with uncounted():
+        out, status = scrub_ops.scrub_rows(flipped)
+    check(torch.equal(out, scrubbed), "scrub_rows is not deterministic")
+    del out
+    hist = torch.zeros(4, dtype=torch.int64, device=flipped.device)
+    for a, b in plain_chunks(flipped.shape[0]):
+        want, want_st = scrub_ref.scrub_rows(flipped[a:b])
+        check(torch.equal(want, scrubbed[a:b])
+              and torch.equal(want_st, status[a:b]),
+              f"pool rows {a}:{b}: scrub != plain scrub")
+        hist += torch.bincount(want_st.reshape(-1), minlength=4)
+    return hist.tolist()
+
+
+def hold_decode(torch, flipped) -> list:
+    """The secded_decode launch of the warm restore's read at its shape
+    (every page of the pool: (R, 8W) data, (R, W) codes, gathered as the
+    read gathers them) over the flipped pool (not counted), against the
+    plain decode chunk by chunk on the card: data, codes and per-beat
+    status equal. -> status histogram."""
+    from repro_torch.kernels.secded import ops as secded_ops
+    from repro_torch.kernels.secded import ref as secded_ref
+    R = flipped.shape[0]
+    data = flipped[:, :8].reshape(R, -1).contiguous()
+    codes = flipped[:, 8].contiguous()
+    with uncounted():
+        got = secded_ops.decode(data, codes)
+    hist = torch.zeros(4, dtype=torch.int64, device=flipped.device)
+    for a, b in plain_chunks(R):
+        want = secded_ref.decode(data[a:b], codes[a:b])
+        check(all(torch.equal(w, g[a:b]) for w, g in zip(want, got)),
+              f"pool rows {a}:{b}: decode != plain decode")
+        hist += torch.bincount(want[2].reshape(-1), minlength=4)
+    return hist.tolist()
+
+
+def phase_train(torch, np) -> tuple[dict, dict]:
+    """qwen3-0.6b from the registry at full width (28 layers, d 1024, vocab
+    151936, bfloat16, 596.0 M parameters) trained through the port's
+    launcher in-process (repro_torch.launch.train.main), at the reference
+    launcher's defaults (sequence 128, global batch 8, scrub every 10
+    steps, a checkpoint every 10): TRAIN_STEPS steps with two saves, then
+    the launcher again on the same directory (it must resume at step 20)
+    for TRAIN_RESUME_STEPS step. Then the recovery ladder on a
+    make_trainer of the same config: TRAIN_FLIPS flips in the 5.00 GiB
+    moment pool repaired by the scrub kernel (scrub-repair), a warm
+    restart whose moments equal the optimizer's bit for bit, a targeted
+    restore and a cold restart from the last checkpoint. Free disk space
+    is checked before the first save; the directory is removed at the
+    end."""
+    import io
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import injection
+    from repro_torch.distributed.fault_tolerance import recover
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.kernels import common
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import count_params
+    from repro_torch.train.trainer import Trainer, make_trainer
+    cfg = launch_train.get_config(TRAIN_ARCH)       # as the launcher reads it
+    n_params = count_params(cfg)
+    ck = common_build() / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    ck.mkdir(parents=True)
+    # a save: bf16 params, float32 m and v, their SECDED codes (1/8)
+    save_bytes = int(n_params * (2 + 4 + 4) * 9 / 8)
+    free = shutil.disk_usage(ck).free
+    saves_needed = 3
+    if free < saves_needed * save_bytes * 1.1:
+        raise RuntimeError(f"{free / 2**30:.1f} GiB free under {ck}; the "
+                           f"phase needs {saves_needed} saves of "
+                           f"{save_bytes / 2**30:.2f} GiB")
+    saves, restores, snaps, scrubs = [], [], [], []
+    orig = (Checkpointer.save, Checkpointer.restore,
+            Trainer.snapshot_moments, Trainer.scrub_pools)
+
+    def timed(fn, log, step_dir=False):
+        """``fn`` timed to the card's end; a checkpoint's size on disk
+        too (its step directory: the first argument is the step)."""
+        def wrapped(self, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            rec = {"s": time.perf_counter() - t}
+            if step_dir:
+                rec["bytes"] = sum(f.stat().st_size for f in
+                                   Path(self.step_dir(a[0])).iterdir())
+            log.append(rec)
+            return out
+        return wrapped
+
+    Checkpointer.save = timed(orig[0], saves, step_dir=True)
+    Checkpointer.restore = timed(orig[1], restores, step_dir=True)
+    Trainer.snapshot_moments = timed(orig[2], snaps)
+    Trainer.scrub_pools = timed(orig[3], scrubs)
+    argv = ["--arch", TRAIN_ARCH, "--ckpt-dir", str(ck), "--device", DEVICE]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.LAUNCHES.clear()             # counts of the main path only
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            tr = launch_train.main(argv + ["--steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        check(len(lines) == 1 and lines[0].startswith(
+            f"{cfg.name}: loss ") and lines[0].endswith(
+            f"over {TRAIN_STEPS} steps"), f"launcher printed {lines}")
+        # m and v in float32, in pages of 8 rows of 256 words, 8-row groups
+        rows = -(-2 * n_params // (8 * 256 * 8)) * 8
+        check(tr.moment_pool.num_rows == rows and
+              tr.params["embed"]["table"].dtype == cfg.activation_dtype,
+              f"moment pool of {tr.moment_pool.num_rows} rows, not {rows}")
+        step_s = [r["wall_s"] for r in tr.metrics_log[1:]]
+        losses = [r["loss"] for r in tr.metrics_log]
+        pool_gib = tr.moment_pool.raw_bytes / 2**30
+        check(all(np.isfinite(losses)), f"losses {losses}")
+        scrub_log = [r["scrub"] for r in tr.metrics_log if "scrub" in r]
+        check(all(r["corrected"] == 0 == r["uncorrectable"]
+                  for r in scrub_log), f"scrubs {scrub_log}")
+        del tr
+        torch.cuda.empty_cache()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            tr = launch_train.main(argv + ["--steps",
+                                           str(TRAIN_RESUME_STEPS)])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        lines2 = out.getvalue().splitlines()
+        check(lines2[0] == f"resumed at step {TRAIN_STEPS}"
+              and tr.step == TRAIN_STEPS + TRAIN_RESUME_STEPS,
+              f"resumed launcher printed {lines2}")
+        del tr
+        torch.cuda.empty_cache()
+        # the recovery ladder at full width
+        tcfg = TrainConfig(total_steps=100, scrub_every=10,
+                           checkpoint_every=10)
+        tr = make_trainer(cfg, tcfg, ckpt_dir=str(ck), device=DEVICE)
+        tr.run(2)
+        tr.snapshot_moments()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        # the 5.00 GiB pool's kernels against their plain versions: the
+        # snapshot's encode, the rung-1 scrub and the warm restore's decode
+        held = dict(encode_rows=hold_pool_codes(torch,
+                                                tr.moment_pool.storage))
+        rng = np.random.default_rng(SEED + 50)
+        flipped, recs = injection.inject_flips(tr.moment_pool.storage, rng,
+                                               TRAIN_FLIPS)
+        tr.moment_pool = dataclasses.replace(tr.moment_pool, storage=flipped)
+        ladder = [recover(tr, "sdc_single_bit")]
+        check(ladder[0].rung == "scrub-repair"
+              and ladder[0].details["corrected"] == TRAIN_FLIPS
+              and ladder[0].details["uncorrectable"] == 0,
+              f"rung 1: {ladder[0]}")
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        held["scrub_status"] = hold_scrub(torch, flipped,
+                                          tr.moment_pool.storage)
+        held["decode_status"] = hold_decode(torch, flipped)
+        check(held["scrub_status"] == held["decode_status"]
+              and sum(held["scrub_status"][1:3]) == TRAIN_FLIPS
+              and held["scrub_status"][3] == 0,
+              f"flipped pool's beats: {held}")
+        del flipped
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()    # the path's peak, not theirs
+        before = (tree_map(torch.clone, tr.opt_state.m),
+                  tree_map(torch.clone, tr.opt_state.v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ladder.append(recover(tr, "process_crash"))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        check(ladder[1].rung == "warm-restart"
+              and ladder[1].details["worst_status"] == 0
+              and same_tree(torch, before[0], tr.opt_state.m)
+              and same_tree(torch, before[1], tr.opt_state.v),
+              f"rung 3: {ladder[1]}")
+        del before
+        torch.cuda.empty_cache()
+        ladder.append(recover(tr, "sdc_multi_bit"))
+        check(ladder[2].rung == "targeted-restore"
+              and ladder[2].details["restored_at_step"]
+              == TRAIN_STEPS + TRAIN_RESUME_STEPS, f"rung 2: {ladder[2]}")
+        ladder.append(recover(tr, "host_loss"))
+        check(ladder[3].rung == "cold-restart"
+              and ladder[3].details["restored"], f"rung 4: {ladder[3]}")
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        launches = dict(common.LAUNCHES)
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        (Checkpointer.save, Checkpointer.restore, Trainer.snapshot_moments,
+         Trainer.scrub_pools) = orig
+        shutil.rmtree(ck, ignore_errors=True)
+    for k in ("secded_encode", "secded_decode", "scrub_rows"):
+        check(launches.get(k, 0) > 0, f"train: no {k} launch")
+    return dict(arch=TRAIN_ARCH, params=n_params, seq_len=128,
+                global_batch=8, steps=TRAIN_STEPS, printed=lines + lines2,
+                losses=losses,
+                step_ms_median=statistics.median(step_s) * 1e3,
+                step_ms=[x * 1e3 for x in step_s],
+                # every timed step's tokens over their summed times
+                tokens_per_s=len(step_s) * 8 * 128 / sum(step_s),
+                first_run_s=first_s, resumed_run_s=resume_s,
+                peak_gib=peak / 2**30, moment_pool_gib=pool_gib,
+                snapshot_ms=[r["s"] * 1e3 for r in snaps],
+                scrub_ms=[r["s"] * 1e3 for r in scrubs],
+                saves=[dict(seconds=r["s"], gib=r["bytes"] / 2**30)
+                       for r in saves],
+                restores=[dict(seconds=r["s"], gib=r["bytes"] / 2**30)
+                          for r in restores],
+                warm_restore_s=warm_s, held_against_plain=held,
+                ladder=[dict(rung=r.rung, **r.details) for r in ladder],
+                launches=launches), launches
+
+
+LM_STEPS, LM_SEQ, LM_BATCH = 10, 64, 4
+#: examples/train_lm.py's model
+LM_CFG = dict(name="lm-110m", family="dense", num_layers=14, d_model=640,
+              num_heads=10, num_kv_heads=5, d_ff=2560, vocab_size=16384,
+              head_dim=64, dtype="float32")
+
+
+def phase_train_lm(torch, np) -> tuple[dict, dict]:
+    """examples/train_lm.py's scenario on the card: the ~110M-parameter
+    float32 LM (14 layers, d 640, vocab 16384) with --batch 4 (so the
+    microbatch of 2 and remat="block" run), LM_STEPS steps of LM_SEQ
+    tokens, a scrub every 5 and 5 bit flips injected into the moment pool
+    at mid-run, which the scrub corrects exactly; the loss before and
+    after."""
+    import shutil
+
+    from repro_torch.configs.base import ModelConfig, TrainConfig
+    from repro_torch.core.injection import inject_flips
+    from repro_torch.kernels import common
+    from repro_torch.models import count_params
+    from repro_torch.train.trainer import make_trainer
+    cfg = ModelConfig(**LM_CFG)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=20,
+                       total_steps=max(LM_STEPS, 100), microbatch=2,
+                       scrub_every=5, checkpoint_every=20, remat="block")
+    ck = common_build() / "train_lm_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    tr = make_trainer(cfg, tcfg, ckpt_dir=str(ck), seq_len=LM_SEQ,
+                      global_batch=LM_BATCH, device=DEVICE)
+    check(not tr.restore(), "a fresh directory restored a checkpoint")
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    tr.run(LM_STEPS // 2)
+    flipped, _ = inject_flips(tr.moment_pool.storage, rng, 5)
+    tr.moment_pool = dataclasses.replace(tr.moment_pool, storage=flipped)
+    repaired = tr.scrub_pools()
+    scrub_status = hold_scrub(torch, flipped, tr.moment_pool.storage)
+    del flipped
+    log = tr.run(LM_STEPS - LM_STEPS // 2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    check(repaired["corrected"] == 5 == sum(scrub_status[1:3])
+          and repaired["uncorrectable"] == 0 == scrub_status[3],
+          f"scrub after 5 flips: {repaired}, plain sweep {scrub_status}")
+    check(np.isfinite([r["loss"] for r in log]).all(), "non-finite loss")
+    shutil.rmtree(ck, ignore_errors=True)
+    del tr
+    torch.cuda.empty_cache()
+    return dict(params=count_params(cfg), steps=LM_STEPS, seq_len=LM_SEQ,
+                batch=LM_BATCH, microbatch=2, remat="block",
+                injected=5, scrub_corrected=repaired["corrected"],
+                scrub_status_held_against_plain=scrub_status,
+                loss_first=log[0]["loss"], loss_last=log[-1]["loss"],
+                tokens_per_s=LM_STEPS * LM_BATCH * LM_SEQ / dt,
+                launches=launches), launches
+
+
 def summary(stats: dict, launches: dict, wall: float) -> dict:
     keep = ("tokens", "tokens_per_s", "p50_latency_ms", "p99_latency_ms",
             "decode_steps", "device_pages", "preemptions", "restores",
@@ -3616,9 +4353,17 @@ def main() -> int:
     seq, l_sq = phase_seqcache(torch, np, model)
     phase("seqcache", seq)
     del model
+    torch.cuda.empty_cache()
+    soft, l_se = phase_softecc(torch, np)
+    phase("softecc", soft)
+    phase("train-reference", phase_train_reference(torch, np))
+    train, l_tr = phase_train(torch, np)
+    phase("train", train)
+    lm, l_lm = phase_train_lm(torch, np)
+    phase("train-lm", lm)
     main_paths = [l_c, l_s, l_r, l_tm, l_ss, *l_z.values(), *l_w.values(),
                   l_d, l_a, l_cs, l_cd, l_rg, l_wb, l_ls, *l_sc2, l_mg,
-                  l_pl, *l_sq, l_em]
+                  l_pl, *l_sq, l_em, l_se, l_tr, l_lm]
     # a PARITY pool's write is one parity8_write; the standalone encode
     # keeps the TPU kernel's contract and is on no main path
     check(not any(l.get("parity8_encode") for l in main_paths),

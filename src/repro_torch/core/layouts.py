@@ -1,10 +1,12 @@
 """CREAM data layouts — the page-granularity address translation.
 
 Port of ``repro/core/layouts.py``: the layout catalogue, capacity
-accounting and the universal vectorised :func:`page_coords` translation for
-all 5 layouts (the paper's Solutions 1–3, parity, and the ECC baseline).
-The line-granularity access plans used by the DRAM-timing benches stay in
-the reference for now.
+accounting, the line-granularity access plans (:func:`plan_line_access`,
+:func:`count_device_ops`, :func:`parallelism_groups` — host Python, the
+DRAM-operation accounting of the paper's Fig. 10 and of SoftECC's Fig. 12),
+the page placement descriptors (:func:`place_page`) and the universal
+vectorised :func:`page_coords` translation for all 5 layouts (the paper's
+Solutions 1–3, parity, and the ECC baseline).
 
 Geometry: a pool is ``(R, 9, W)`` uint32 words — R rows, 9 lanes (8 data
 + 1 code, the DIMM's chips), W words per lane per row. Index tensors are
@@ -15,6 +17,7 @@ from __future__ import annotations
 import enum
 import functools
 import math
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -108,6 +111,187 @@ def _build_wrap_tables() -> tuple[np.ndarray, np.ndarray]:
 
 
 WRAP_LANES, WRAP_ROWS = _build_wrap_tables()
+
+
+# ---------------------------------------------------------------------------
+# Physical access plans (line granularity — DRAM-sim / overhead accounting)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Access:
+    """One DRAM operation: a lockstep fetch/store of ≤9 (row, lane) slices.
+
+    ``slices`` maps lane -> row. For all layouts except INTERWRAP every
+    touched lane reads the same row; INTERWRAP ops may straddle two
+    adjacent rows (the paper's two banks opened by the bridge chip).
+    """
+    slices: tuple[tuple[int, int], ...]  # ((lane, row), ...)
+    write: bool = False
+    rmw: bool = False                    # requires read-before-write
+
+    @property
+    def rows(self) -> tuple[int, ...]:
+        return tuple(sorted({r for _, r in self.slices}))
+
+    @property
+    def lanes(self) -> tuple[int, ...]:
+        return tuple(sorted({lane for lane, _ in self.slices}))
+
+    def num_device_ops(self) -> int:
+        """DRAM command count this access expands to (RMW = read + write)."""
+        return 2 if self.rmw else 1
+
+
+def _full_row(row: int, lanes, write: bool, rmw: bool = False) -> Access:
+    return Access(tuple((lane, row) for lane in lanes), write=write, rmw=rmw)
+
+
+def interwrap_slices(page_slot: int) -> tuple[tuple[int, int], ...]:
+    """(lane, group-relative row) slices owned by page slot s ∈ [0, 9).
+
+    Paper §4.1.3: linear slice ℓ = row·9 + lane; slot s owns ℓ ∈ [8s, 8s+8).
+    """
+    if not 0 <= page_slot < LANES:
+        raise ValueError(page_slot)
+    return tuple((int(WRAP_LANES[page_slot, k]), int(WRAP_ROWS[page_slot, k]))
+                 for k in range(DATA_LANES))
+
+
+def plan_line_access(layout: Layout, num_rows: int, page: int, write: bool,
+                     row_words: int = DEFAULT_ROW_WORDS) -> list[Access]:
+    """Access plan for one 64B line of logical ``page`` in a CREAM region.
+
+    Page ids: ``[0, num_rows)`` regular, ``[num_rows, total)`` extra. The
+    line index within the page changes only column addresses, not the op
+    structure, so it is not a parameter.
+    """
+    n_extra = extra_page_count(layout, num_rows, row_words)
+    if not 0 <= page < num_rows + n_extra:
+        raise ValueError(f"page {page} out of range for {layout} x {num_rows}")
+    is_extra = page >= num_rows
+    e = page - num_rows
+
+    if layout == Layout.BASELINE_ECC:
+        # one lockstep op across all 9 chips, for reads and writes alike
+        return [_full_row(page, range(LANES), write)]
+
+    if layout == Layout.PACKED:
+        if not is_extra:
+            # reads fetch all 9 lanes; writes RMW, since lane 8 holds
+            # another page's data (paper §4.1.1)
+            return [_full_row(page, range(LANES), write, rmw=write)]
+        # extra page: the line lies in lane 8 of its group's rows, over 8
+        # column segments -> 8 back-to-back ops; the row is representative
+        row = GROUP_ROWS * e
+        return [_full_row(row, range(LANES), write, rmw=write)
+                for _ in range(8)]
+
+    if layout == Layout.RANK_SUBSET:
+        if not is_extra:
+            return [_full_row(page, range(DATA_LANES), write)]
+        row = GROUP_ROWS * e
+        return [_full_row(row, (CODE_LANE,), write) for _ in range(8)]
+
+    if layout == Layout.INTERWRAP:
+        group, slot = (page // GROUP_ROWS, page % GROUP_ROWS) if not is_extra \
+            else (e, GROUP_ROWS)
+        slices = tuple((lane, GROUP_ROWS * group + r)
+                       for lane, r in interwrap_slices(slot))
+        return [Access(slices, write=write)]
+
+    if layout == Layout.PARITY:
+        # rank-subset base + parity ops on lane 8 (paper §4.2)
+        parity_row = _parity_row_of_page(layout, num_rows, page, row_words)
+        parity_op = Access(((CODE_LANE, parity_row),), write=write, rmw=write)
+        if not is_extra:
+            return [_full_row(page, range(DATA_LANES), write), parity_op]
+        data_row0 = _parity_extra_data_row0(num_rows, n_extra, e, row_words)
+        ops = [_full_row(data_row0, (CODE_LANE,), write) for _ in range(8)]
+        return ops + [parity_op]
+
+    raise ValueError(layout)
+
+
+def _parity_row_of_page(layout: Layout, num_rows: int, page: int,
+                        row_words: int) -> int:
+    """Code-lane row holding ``page``'s parity: the regular table first,
+    then the extra pages' (the paper's bank swap for parity rows is a
+    timing detail the DRAM model applies)."""
+    if page < num_rows:
+        return page // 8
+    return math.ceil(num_rows / 8) + (page - num_rows) // 8
+
+
+def _parity_extra_data_row0(num_rows: int, n_extra: int, e: int,
+                            row_words: int) -> int:
+    tables = parity_table_rows(num_rows, n_extra, row_words)
+    return tables + GROUP_ROWS * e
+
+
+def count_device_ops(layout: Layout, num_rows: int, page: int, write: bool,
+                     row_words: int = DEFAULT_ROW_WORDS) -> int:
+    """Total DRAM commands for one line access (the paper's Fig. 10a)."""
+    return sum(a.num_device_ops()
+               for a in plan_line_access(layout, num_rows, page, write,
+                                         row_words))
+
+
+def parallelism_groups(layout: Layout) -> int:
+    """Independently accessible page groups per 8-row group (Fig. 10b):
+    8 rows (banks) for the baseline and PACKED, 9 for the layouts that
+    free the code lane (paper §4.1.3: nine concurrent requests)."""
+    return {Layout.BASELINE_ECC: 8, Layout.PACKED: 8, Layout.RANK_SUBSET: 9,
+            Layout.INTERWRAP: 9, Layout.PARITY: 9}[layout]
+
+
+# ---------------------------------------------------------------------------
+# Page-granularity placement
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PagePlacement:
+    """Where a logical page's data lives, as dense slice descriptors.
+
+    kind:
+      'rows'      data = region[row, 0:8, :]               (one row, 8 lanes)
+      'codelane'  data = region[row0:row0+8, 8, :]          (8 rows of lane 8)
+      'wrap'      data = 8 (lane, row) slices, lane-rotated (interwrap)
+    """
+    kind: str
+    row0: int
+    slices: tuple[tuple[int, int], ...] = field(default=())
+
+
+def place_page(layout: Layout, num_rows: int, page: int,
+               row_words: int = DEFAULT_ROW_WORDS) -> PagePlacement:
+    n_extra = extra_page_count(layout, num_rows, row_words)
+    if not 0 <= page < num_rows + n_extra:
+        raise ValueError(f"page {page} out of range")
+    is_extra = page >= num_rows
+    e = page - num_rows
+
+    if layout == Layout.BASELINE_ECC:
+        return PagePlacement("rows", page)
+    if layout in (Layout.PACKED, Layout.RANK_SUBSET):
+        if not is_extra:
+            return PagePlacement("rows", page)
+        return PagePlacement("codelane", GROUP_ROWS * e)
+    if layout == Layout.INTERWRAP:
+        group, slot = (page // GROUP_ROWS, page % GROUP_ROWS) if not is_extra \
+            else (e, GROUP_ROWS)
+        return PagePlacement(
+            "wrap", GROUP_ROWS * group,
+            tuple((lane, GROUP_ROWS * group + r)
+                  for lane, r in interwrap_slices(slot)))
+    if layout == Layout.PARITY:
+        if not is_extra:
+            return PagePlacement("rows", page)
+        return PagePlacement(
+            "codelane", _parity_extra_data_row0(num_rows, n_extra, e,
+                                                row_words))
+    raise ValueError(layout)
 
 
 def _ids(pages) -> torch.Tensor:

@@ -49,6 +49,7 @@ destination pool in place (the reference donates it).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -65,6 +66,12 @@ from repro_torch.kernels.interwrap import ops as interwrap_ops
 from repro_torch.kernels.parity8 import ops as parity8_ops
 from repro_torch.kernels.secded import ops as secded_ops
 from repro_torch.obs import memprof
+
+
+def _warn_deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"PoolLike.{old} is deprecated; use the unified access API: "
+        f"pool.{new}", DeprecationWarning, stacklevel=3)
 
 
 @dataclass
@@ -172,6 +179,32 @@ class PoolState:
         if data is None:
             return self.read(pages).reshape(*shape, self.page_words)
         return self.write(pages, data, valid=valid)
+
+    # -- deprecated access surface (thin shims over the unified API) --------
+
+    def read_any(self, pages) -> torch.Tensor:
+        _warn_deprecated("read_any", "read(pages)")
+        return read_pages_any(self, pages)
+
+    def read_any_status(self, pages) -> tuple[torch.Tensor, torch.Tensor]:
+        _warn_deprecated("read_any_status", "read(pages, status=True)")
+        return read_pages_any_status(self, pages)
+
+    def write_any(self, pages, data) -> "PoolState":
+        _warn_deprecated("write_any", "write(pages, data)")
+        return write_pages_any(self, pages, data)
+
+    def read_pages(self, pages) -> torch.Tensor:
+        _warn_deprecated("read_pages", "read(pages)")
+        return self.read(pages)
+
+    def read_pages_status(self, pages) -> tuple[torch.Tensor, torch.Tensor]:
+        _warn_deprecated("read_pages_status", "read(pages, status=True)")
+        return self.read(pages, status=True)
+
+    def write_pages(self, pages, data) -> "PoolState":
+        _warn_deprecated("write_pages", "write(pages, data)")
+        return self.write(pages, data)
 
     def evict_prediction(self, new_boundary: int) -> list[int]:
         """Extra-page ids a move to ``new_boundary`` would evict."""

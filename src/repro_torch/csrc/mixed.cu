@@ -37,6 +37,37 @@ using namespace repro_torch;
 
 namespace {
 
+// One block's slice of page i: its threads copy the slice's W words from
+// `src` to `dst` a group of 8 words each, correcting a SECDED slice (`sec`)
+// against its packed code words in registers. With kStatus the block's
+// worst beat status is reduced (a warp max, then one shared word) and
+// written to status[i] with at most one atomicMax.
+template <bool kStatus>
+__device__ __forceinline__ void copy_slice(const uint4* __restrict__ src,
+                                           const uint32_t* __restrict__ code,
+                                           uint4* __restrict__ dst, bool sec,
+                                           int W, int32_t* __restrict__ status,
+                                           int i) {
+  int worst = 0;
+  for (int t = threadIdx.x; t < W / 8; t += blockDim.x) {
+    uint4 a = src[2 * t], b = src[2 * t + 1];
+    if (sec) worst = max(worst, correct_group(a, b, code[t]));
+    dst[2 * t] = a;
+    dst[2 * t + 1] = b;
+  }
+  if constexpr (kStatus) {
+    // blockDim.x is a whole number of warps (slice_threads), all of them
+    // past the loop here
+    __shared__ int block_worst;
+    if (threadIdx.x == 0) block_worst = 0;
+    __syncthreads();
+    worst = __reduce_max_sync(0xFFFFFFFFu, worst);
+    if ((threadIdx.x & 31) == 0 && worst) atomicMax(&block_worst, worst);
+    __syncthreads();
+    if (threadIdx.x == 0 && block_worst) atomicMax(status + i, block_worst);
+  }
+}
+
 template <bool kStatus>
 __global__ void mixed_read_correct_kernel(const int32_t* __restrict__ storage,
                                           const int32_t* __restrict__ pages,
@@ -58,24 +89,7 @@ __global__ void mixed_read_correct_kernel(const int32_t* __restrict__ storage,
                     * W) + k * (W / 8);
   uint4* dst = reinterpret_cast<uint4*>(
       out + (static_cast<size_t>(i) * 8 + k) * W);
-  int worst = 0;
-  for (int t = threadIdx.x; t < W / 8; t += blockDim.x) {
-    uint4 a = src[2 * t], b = src[2 * t + 1];
-    if (sec) worst = max(worst, correct_group(a, b, code[t]));
-    dst[2 * t] = a;
-    dst[2 * t + 1] = b;
-  }
-  if constexpr (kStatus) {
-    // blockDim.x is a whole number of warps (slice_threads), all of them
-    // past the loop here
-    __shared__ int block_worst;
-    if (threadIdx.x == 0) block_worst = 0;
-    __syncthreads();
-    worst = __reduce_max_sync(0xFFFFFFFFu, worst);
-    if ((threadIdx.x & 31) == 0 && worst) atomicMax(&block_worst, worst);
-    __syncthreads();
-    if (threadIdx.x == 0 && block_worst) atomicMax(status + i, block_worst);
-  }
+  copy_slice<kStatus>(src, code, dst, sec, W, status, i);
 }
 
 // Router-fused read of the CREAM-Shard pool: all S banks lie in one
@@ -86,10 +100,15 @@ __global__ void mixed_read_correct_kernel(const int32_t* __restrict__ storage,
 // (regular p -> bank p % S, local p / S; extra R + e -> bank e % S, local
 // R_local + e / S), translates the local id against the bank's geometry
 // and reads from that bank, which gives the psum's assembled batch with
-// no zero traffic. Same bound and thread layout as above.
+// no zero traffic. Same bound and thread layout as above, and the same
+// optional status output (the sharded pool's status read and the serving
+// step's metrics-on gather): the template keeps the status-free launch
+// the kernel it was.
+template <bool kStatus>
 __global__ void mixed_read_routed_kernel(const int32_t* __restrict__ storage,
                                          const int32_t* __restrict__ pages,
-                                         int32_t* __restrict__ out, int W,
+                                         int32_t* __restrict__ out,
+                                         int32_t* __restrict__ status, int W,
                                          int interwrap, int num_rows,
                                          int num_shards, int boundary_local,
                                          int ebase) {
@@ -117,27 +136,32 @@ __global__ void mixed_read_routed_kernel(const int32_t* __restrict__ storage,
               + 8) * W) + k * (W / 8);
   uint4* dst = reinterpret_cast<uint4*>(
       out + (static_cast<size_t>(i) * 8 + k) * W);
-  for (int t = threadIdx.x; t < W / 8; t += blockDim.x) {
-    uint4 a = src[2 * t], b = src[2 * t + 1];
-    if (sec) correct_group(a, b, code[t]);
-    dst[2 * t] = a;
-    dst[2 * t + 1] = b;
-  }
+  copy_slice<kStatus>(src, code, dst, sec, W, status, i);
 }
 
 }  // namespace
 
+// `status` may be null (no status output); else n zeroed int32 words.
 extern "C" int mixed_read_correct_routed(const void* storage,
-                                         const void* pages, void* out, int n,
-                                         int W, int interwrap, int num_rows,
+                                         const void* pages, void* out,
+                                         void* status, int n, int W,
+                                         int interwrap, int num_rows,
                                          int num_shards, int boundary_local,
                                          int ebase, void* stream) {
   const dim3 grid(n, 8);
-  mixed_read_routed_kernel<<<grid, slice_threads(W), 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(storage), static_cast<const int32_t*>(pages),
-      static_cast<int32_t*>(out), W, interwrap, num_rows, num_shards,
-      boundary_local, ebase);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* st = static_cast<const int32_t*>(storage);
+  const auto* pg = static_cast<const int32_t*>(pages);
+  auto* o = static_cast<int32_t*>(out);
+  auto* stat = static_cast<int32_t*>(status);
+  if (stat)
+    mixed_read_routed_kernel<true><<<grid, slice_threads(W), 0, s>>>(
+        st, pg, o, stat, W, interwrap, num_rows, num_shards, boundary_local,
+        ebase);
+  else
+    mixed_read_routed_kernel<false><<<grid, slice_threads(W), 0, s>>>(
+        st, pg, o, nullptr, W, interwrap, num_rows, num_shards,
+        boundary_local, ebase);
   return static_cast<int>(cudaGetLastError());
 }
 

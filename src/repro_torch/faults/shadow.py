@@ -32,8 +32,6 @@ migration engine's gather/re-encode and coded-row scatter — check
 ``read``/``write`` instead. One caveat is inherent: a migration re-writes
 what it read, so corruption that slips through a migration read is
 counted as silent at that read and then becomes the new believed content.
-
-Not here yet: the reference's deprecated access shims.
 """
 from __future__ import annotations
 
@@ -45,7 +43,7 @@ import torch
 from repro_torch.core import secded
 from repro_torch.core.layouts import extra_page_count
 from repro_torch.core.pool import (PoolState, _as_words, _host_ids,
-                                   _landing_rows)
+                                   _landing_rows, _warn_deprecated)
 from repro_torch.kernels.common import upload
 from repro_torch.vm.address_space import frame_classes
 
@@ -223,6 +221,31 @@ class ShadowedPool:
     # ``(S, n)`` streams as a batching convention over the classified read
     # and the shadowed write, as on a local pool
     streams = PoolState.streams
+
+    # -- deprecated access surface (thin shims over the unified API) --------
+    def read_pages(self, pages) -> torch.Tensor:
+        _warn_deprecated("read_pages", "read(pages)")
+        return self.read(pages)
+
+    def read_pages_status(self, pages) -> tuple[torch.Tensor, torch.Tensor]:
+        _warn_deprecated("read_pages_status", "read(pages, status=True)")
+        return self.read(pages, status=True)
+
+    def write_pages(self, pages, data) -> "ShadowedPool":
+        _warn_deprecated("write_pages", "write(pages, data)")
+        return self.write(pages, data)
+
+    def read_any(self, pages) -> torch.Tensor:
+        _warn_deprecated("read_any", "read(pages)")
+        return self.read(pages)
+
+    def read_any_status(self, pages) -> tuple[torch.Tensor, torch.Tensor]:
+        _warn_deprecated("read_any_status", "read(pages, status=True)")
+        return self.read(pages, status=True)
+
+    def write_any(self, pages, data) -> "ShadowedPool":
+        _warn_deprecated("write_any", "write(pages, data)")
+        return self.write(pages, data)
 
     def memprof_record(self, op: str, pages, stream: str = "main") -> None:
         """CREAM-Lens sees the wrapped pool's dispatches."""

@@ -143,9 +143,10 @@ ENTRIES = {
     # storage, pages, out, status (or NULL), n, W, interwrap, num_rows,
     # boundary, ebase, stream
     "mixed_read_correct": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # storage, pages, out, n, W, interwrap, num_rows, num_shards,
-    # boundary_local, ebase, stream
-    "mixed_read_correct_routed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # storage, pages, out, status (or NULL), n, W, interwrap, num_rows,
+    # num_shards, boundary_local, ebase, stream
+    "mixed_read_correct_routed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _P),
     # storage, pages, data, codes, n, W, num_rows, stream
     "migrate_gather_encode": (_P, _P, _P, _P, _I, _I, _I, _P),
     # data, parity, n_vectors, stream

@@ -24,7 +24,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``Hq % Hkv == 0``; query head h attends with KV head ``h // (Hq/Hkv)``.
     float32 or bfloat16 operands; the softmax and the accumulation run in
-    float32. ``scale`` defaults to ``1/sqrt(D)``.
+    float32. ``scale`` defaults to ``1/sqrt(D)``. Forward only: with grad
+    mode on and an operand that requires grad it raises.
     """
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError("expected q (B, Hq, S, D) and k, v (B, Hkv, S, D)")
@@ -36,6 +37,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: operands must share one of "
                         f"{DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel has no backward (nor has the reference's): its output
+        # would carry no grad_fn and silently cut q, k, v out of a gradient
+        raise RuntimeError("flash_attention has no backward; train with "
+                           "attn_impl='xla' (einsum attention)")
     common.check_contiguous("flash_attention", q, k, v)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.attention(q, k, v, causal=causal, scale=scale)

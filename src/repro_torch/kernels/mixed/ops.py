@@ -53,10 +53,12 @@ def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
 
 def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
                         layout: Layout, num_rows: int, boundary: int,
-                        num_shards: int) -> torch.Tensor:
+                        num_shards: int, status: bool = False):
     """Router-fused read of global page ids from ``(S, R_local, 9, W)``
     banks -> ``(n, 8W)`` corrected page data, each page from its own bank,
-    in one launch.
+    in one launch; with ``status=True`` also each page's worst SECDED
+    decode status ``(n,)`` int32 from the same launch (as
+    :func:`read_correct`'s) -> ``(data, status)``.
 
     ``num_rows`` / ``boundary`` are the global geometry (``S * R_local``,
     ``S * b_local``). Page ids must be in range (the pool validates them
@@ -76,16 +78,18 @@ def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
     common.check_contiguous("mixed_read_correct_routed", storage, pages)
     if storage.device.type == "cpu" and pages.device.type == "cpu":
         return ref.read_correct_routed(storage, pages, layout, num_rows,
-                                       boundary, S)
+                                       boundary, S, status=status)
     W = storage.shape[3]
     pages = pages.to(torch.int32)
     common.check_cuda_words("mixed_read_correct_routed", storage, pages)
     n = pages.shape[0]
     out = torch.empty((n, DATA_LANES * W), dtype=torch.int32,
                       device=storage.device)
+    st = torch.zeros((n,), dtype=torch.int32, device=storage.device) \
+        if status else None
     if n:
         b_local = boundary // S
-        common.launch("mixed_read_correct_routed", storage, pages, out, n, W,
-                      int(layout == Layout.INTERWRAP), num_rows, S, b_local,
-                      extra_base_row(layout, b_local, W))
-    return out
+        common.launch("mixed_read_correct_routed", storage, pages, out, st,
+                      n, W, int(layout == Layout.INTERWRAP), num_rows, S,
+                      b_local, extra_base_row(layout, b_local, W))
+    return (out, st) if status else out

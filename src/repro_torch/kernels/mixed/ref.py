@@ -43,22 +43,24 @@ def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
 
 def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
                         layout: Layout, num_rows: int, boundary: int,
-                        num_shards: int) -> torch.Tensor:
-    """(S, R_local, 9, W) banks, (n,) global page ids -> (n, 8W) data.
+                        num_shards: int, status: bool = False):
+    """(S, R_local, 9, W) banks, (n,) global page ids -> (n, 8W) data, or
+    with ``status=True`` ``(data, status (n,) int32)``.
 
     Two passes: the router's global id -> (bank, local id), then
     :func:`read_correct` of each bank's owned local ids against the bank's
     local geometry (``num_rows`` / ``boundary`` are global); every row
-    comes from its own bank, the sum of the reference's per-bank outputs.
+    and status comes from its own bank, the sum of the reference's
+    per-bank outputs.
     """
     from repro_torch.shard import router      # shard/ sits above kernels/
     shard, local = router.route(pages, num_rows, num_shards)
     rows_local, b_local = num_rows // num_shards, boundary // num_shards
-    out = None
+    out = st = None
     for s in range(num_shards):
         owned = shard == s
-        data = read_correct(storage[s], torch.where(owned, local, 0), layout,
-                            rows_local, b_local)
-        out = torch.where(owned[:, None], data,
-                          0 if out is None else out)
-    return out
+        data, beats = read_correct(storage[s], torch.where(owned, local, 0),
+                                   layout, rows_local, b_local, status=True)
+        out = torch.where(owned[:, None], data, 0 if out is None else out)
+        st = torch.where(owned, beats, 0 if st is None else st)
+    return (out, st.to(torch.int32)) if status else out

@@ -80,11 +80,18 @@ class MLP(nn.Module):
             if variant == "swiglu" else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.w_gate is not None:
-            h = F.silu(x @ self.w_gate) * (x @ self.w_up)
-        else:       # jax.nn.gelu's default is the tanh approximation
-            h = F.gelu(x @ self.w_up, approximate="tanh")
-        return h @ self.w_down
+        return apply_mlp(self, x)
+
+
+def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """The MLP of weights ``p.w_up``, ``p.w_down`` and ``p.w_gate`` (None
+    for the GELU variant): an :class:`MLP`, or a namespace of a parameter
+    tree's tensors (the training path's)."""
+    if getattr(p, "w_gate", None) is not None:
+        h = F.silu(x @ p.w_gate) * (x @ p.w_up)
+    else:       # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(x @ p.w_up, approximate="tanh")
+    return h @ p.w_down
 
 
 class Embedding(nn.Module):

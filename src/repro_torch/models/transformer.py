@@ -15,24 +15,36 @@ paged-KV layer axis. The dense decode state keeps the reference's tree:
 
 ``attn_impl`` picks the full-sequence attention of every prefill and
 forward: ``"xla"`` (einsum) or ``"flash"`` (the flash-attention kernel).
-Nothing here takes a gradient: the reference has no backward for its flash
-kernel, and the port adds none.
+The module's methods serve and take no gradient (they run under
+``torch.no_grad``). Training takes its gradient through :func:`loss_fn`,
+the reference's ``loss_fn`` over its ``forward``: a function of the
+reference's parameter tree (``embed/table``, ``final_norm``, ``stages/
+pos{i}/{norm1,block,norm2,mixer}/...`` stacked over stages;
+:func:`repro_torch.models.model.params_tree` makes it from a model), with
+``remat`` recomputing each stage's activations in the backward pass
+(``torch.utils.checkpoint``; the reference's ``jax.checkpoint`` of each
+stage). The reference trains with einsum attention: the flash kernel has
+no backward there or here, and its wrapper raises under autograd.
 
 Only attention blocks with MLP (or no) mixers are ported — the pattern
 CREAM-Serve pages; MoE, Mamba and xLSTM blocks are queued in ROADMAP.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import BlockKind, MixerKind, ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention
-from repro_torch.models.common import (MLP, Embedding, RMSNorm,
-                                      cross_entropy, dense_init)
+from repro_torch.models.common import (MLP, Embedding, RMSNorm, apply_mlp,
+                                      cross_entropy, dense_init, rms_norm)
 
 ATTN_IMPLS = ("xla", "flash")
+REMATS = ("none", "block", "full")
 AUX_WEIGHT = 0.01          # the reference loss_fn's MoE balance weight
 
 
@@ -40,6 +52,16 @@ def attn_pattern_positions(cfg: ModelConfig) -> list[int]:
     """Pattern indices whose block is attention (= has a KV cache)."""
     return [i for i, (bk, _) in enumerate(cfg.pattern)
             if bk == BlockKind.ATTN]
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for a config with blocks the port does not build yet."""
+    unsupported = [(bk.value, mk.value) for bk, mk in cfg.pattern
+                   if bk != BlockKind.ATTN or mk == MixerKind.MOE]
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: blocks {unsupported} are not ported yet "
+            "(ROADMAP, queue 1: models/moe.py, ssm.py, xlstm.py)")
 
 
 def num_attn_layers(cfg: ModelConfig) -> int:
@@ -76,12 +98,7 @@ class Transformer(nn.Module):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         self.attn_impl = attn_impl
-        unsupported = [(bk.value, mk.value) for bk, mk in cfg.pattern
-                       if bk != BlockKind.ATTN or mk == MixerKind.MOE]
-        if unsupported:
-            raise NotImplementedError(
-                f"{cfg.name}: blocks {unsupported} are not ported yet "
-                "(ROADMAP, queue 1: models/moe.py, ssm.py, xlstm.py)")
+        check_ported(cfg)
         self.cfg = cfg
         dtype = cfg.activation_dtype
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
@@ -233,3 +250,66 @@ class Transformer(nn.Module):
             x = blk.mix(x + y)
         return (self._logits(x)[:, 0], {"cache_len": cache_len + 1},
                 (torch.stack(news_k), torch.stack(news_v)))
+
+
+# ---------------------------------------------------------------------------
+# The training path: a grad-enabled loss over the reference's parameter tree
+# ---------------------------------------------------------------------------
+
+
+def _stage(cfg: ModelConfig, attn_impl: str, x: torch.Tensor,
+           stage: dict) -> torch.Tensor:
+    """One stage (one period of the pattern) over ``x``: ``stage`` is the
+    stage's slice of ``params["stages"]``."""
+    for i, (bk, mk) in enumerate(cfg.pattern):
+        entry = stage[f"pos{i}"]
+        h = rms_norm(x, entry["norm1"], cfg.norm_eps)
+        x = x + attention.apply_attn(SimpleNamespace(**entry["block"]), cfg,
+                                     h, impl=attn_impl)
+        if mk == MixerKind.MLP:
+            h2 = rms_norm(x, entry["norm2"], cfg.norm_eps)
+            x = x + apply_mlp(SimpleNamespace(**entry["mixer"]), h2)
+    return x
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """A tree of stacked leaves -> ``n`` trees of their slices (one
+    ``unbind`` a leaf, whose backward is one stack)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][s] for k in tree} for s in range(n)]
+    return list(tree.unbind(0))
+
+
+def forward_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+               attn_impl: str = "xla", remat: str = "none"
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V), aux loss), grad-enabled: the
+    reference's ``forward`` over its parameter tree. ``remat`` ``"block"``
+    or ``"full"`` recomputes each stage in the backward pass."""
+    if remat not in REMATS:
+        raise ValueError(f"remat {remat!r} not in {REMATS}")
+    check_ported(cfg)
+    x = params["embed"]["table"][tokens]
+    for stage in _unstack(params["stages"], cfg.num_stages):
+        if remat == "none":
+            x = _stage(cfg, attn_impl, x, stage)
+        else:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda h, st=stage: _stage(cfg, attn_impl, h, st), x,
+                use_reentrant=False)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["table"].T
+    else:
+        logits = x @ params["lm_head"]["w"]
+    return logits, torch.zeros((), device=x.device)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, aux_weight: float = AUX_WEIGHT,
+            attn_impl: str = "xla", remat: str = "none") -> torch.Tensor:
+    """Mean token NLL of ``labels`` plus the weighted aux loss, with a
+    gradient to every leaf of ``params`` that requires one."""
+    logits, aux = forward_fn(params, cfg, tokens, attn_impl, remat)
+    return cross_entropy(logits, labels) + aux_weight * aux

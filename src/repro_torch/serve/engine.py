@@ -258,8 +258,9 @@ class Engine:
         plain gather — and its page ids and count rows go to the card in
         one upload. A PARITY pool (whose status is the parity check, which
         the mixed read does not run), a DAEC tier, a wrapped or a sharded
-        pool reads through ``pool.read(phys, status=True)``. Either way
-        one reduction (:func:`_status_counts`) makes the counts.
+        pool reads through ``pool.read(phys, status=True)`` (a sharded pool
+        of the first kind: one router-fused read with its status output).
+        Either way one reduction (:func:`_status_counts`) makes the counts.
         """
         pool = self.pool
         rows4 = _status_rows(pool, phys)

@@ -15,10 +15,12 @@ as a contiguous view, so every local verb and kernel of
 :mod:`repro_torch.core.pool` runs on it unchanged and in place.
 
   * :meth:`ShardedPool.read` of page ids is one launch of the router-fused
-    mixed read (:func:`repro_torch.kernels.mixed.ops.read_correct_routed`);
-    status reads, and every read of a pool with a SEC-DAEC tier (the fused
-    read corrects with SECDED only), go through the local engine bank by
-    bank and are assembled in batch order.
+    mixed read (:func:`repro_torch.kernels.mixed.ops.read_correct_routed`),
+    with ``status=True`` too, whose status comes out of the same launch.
+    Every read of a pool with a SEC-DAEC tier (the fused read corrects
+    with SECDED only), and the status reads of a PARITY pool (whose status
+    is the parity check, which the fused read does not run), go through
+    the local engine bank by bank and are assembled in batch order.
   * :meth:`ShardedPool.read_writeback` runs the local write-back read
     bank by bank on views of a copy of the storage;
   * :meth:`ShardedPool.write` lands the last valid row of each page
@@ -197,6 +199,13 @@ class ShardedPool:
                               pages=int(ids.size), shards=self.num_shards):
             return _read(self, ids, status)
 
+    @property
+    def fused_status(self) -> bool:
+        """Whether a status read is the fused read's status output: no
+        DAEC tier (the fused read corrects with SECDED only) and a layout
+        other than PARITY (whose status is the parity check)."""
+        return not self.daec_rows_local and self.layout != Layout.PARITY
+
     def write(self, pages, data, *, valid=None) -> "ShardedPool":
         """Code-maintaining batch write, in place; returns this pool.
         ``valid`` (optional ``(n,)`` bool) drops masked rows; of duplicate
@@ -238,6 +247,35 @@ class ShardedPool:
         """Feed one dispatch to CREAM-Lens, routed per bank."""
         _memprof_routed(self, op, pages, stream)
 
+    # -- deprecated access surface (thin shims over the unified API) --------
+
+    def read_any(self, pages) -> torch.Tensor:
+        pool_lib._warn_deprecated("read_any", "read(pages)")
+        return _read(self, pool_lib._host_ids(self, pages))
+
+    def read_any_status(self, pages) -> tuple[torch.Tensor, torch.Tensor]:
+        pool_lib._warn_deprecated("read_any_status",
+                                  "read(pages, status=True)")
+        return _read(self, pool_lib._host_ids(self, pages), status=True)
+
+    def write_any(self, pages, data) -> "ShardedPool":
+        pool_lib._warn_deprecated("write_any", "write(pages, data)")
+        copy = dataclasses.replace(self, storage=self.storage.clone())
+        return _write(copy, pool_lib._host_ids(self, pages), data)
+
+    def read_pages(self, pages) -> torch.Tensor:
+        pool_lib._warn_deprecated("read_pages", "read(pages)")
+        return self.read(pages)
+
+    def read_pages_status(self, pages) -> tuple[torch.Tensor, torch.Tensor]:
+        pool_lib._warn_deprecated("read_pages_status",
+                                  "read(pages, status=True)")
+        return self.read(pages, status=True)
+
+    def write_pages(self, pages, data) -> "ShardedPool":
+        pool_lib._warn_deprecated("write_pages", "write(pages, data)")
+        return self.write(pages, data)
+
     # -- control plane -------------------------------------------------------
     def evict_prediction(self, new_boundary: int) -> list[int]:
         return evicted_extra_pages(self, new_boundary)
@@ -256,14 +294,15 @@ class ShardedPool:
 
 def _read(pool: "ShardedPool", ids: np.ndarray, status: bool = False):
     """:meth:`ShardedPool.read` of validated ids, without its telemetry:
-    one router-fused mixed read, or with ``status`` (or a DAEC tier) the
+    one router-fused mixed read (with its status output for a status
+    read), or for a DAEC tier, or a status read of a PARITY pool, the
     bank-by-bank status read."""
-    if status or pool.daec_rows_local:
+    if pool.daec_rows_local or (status and not pool.fused_status):
         data, st = _read_status(pool, ids)
         return (data, st) if status else data
     return mixed_ops.read_correct_routed(
         pool.storage, upload(ids, pool.device), pool.layout,
-        pool.num_rows, pool.boundary, pool.num_shards)
+        pool.num_rows, pool.boundary, pool.num_shards, status=status)
 
 
 def _write(pool: "ShardedPool", ids: np.ndarray, data, valid=None

@@ -41,9 +41,11 @@ def demo(device=None) -> str:
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core import injection
     from repro_torch.core.monitor import ErrorMonitor
+    from repro_torch.kernels.common import resolve_device
     from repro_torch.obs import dashboard, metrics, tracing
     from repro_torch.serve import Engine, ServeRequest
 
+    device = resolve_device(device)     # refuse a missing card first
     metrics.enable()
     tracing.enable()
     eng = Engine(ModelConfig(**DEMO_CONFIG), max_batch=4, max_len=32,

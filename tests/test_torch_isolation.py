@@ -12,15 +12,21 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.configs.base import ModelConfig
+from repro_torch import obs
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.softecc import make_softecc
+from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.core.pool import make_pool
 from repro_torch.core.regions import RegionManager
 from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.train import main as train_main
 from repro_torch.objcache.hash_index import make_index
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, SequenceCache
 from repro_torch.shard import make_sharded_pool
 from repro_torch.tools.creamtop import main as creamtop_main
+from repro_torch.train.trainer import make_trainer
 from repro_torch.vm.address_space import VirtualMemory
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -61,7 +67,15 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.launch.serve", "repro_torch.obs.metrics",
             "repro_torch.obs.tracing", "repro_torch.obs.dashboard",
             "repro_torch.obs.memprof", "repro_torch.obs.dram_sim",
-            "repro_torch.tools.creamtop"} <= set(names)
+            "repro_torch.tools.creamtop", "repro_torch.core.softecc",
+            "repro_torch.core.poolstore", "repro_torch.optim.adamw",
+            "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.train.train_step", "repro_torch.train.trainer",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.fault_tolerance",
+            "repro_torch.distributed.elastic",
+            "repro_torch.launch.train"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -106,14 +120,23 @@ def test_forbidden_pattern_catches_what_it_must():
     lambda: RegionManager(),
     lambda: serve_main(["--arch", "qwen3-0.6b", "--smoke"]),
     lambda: creamtop_main(["--demo"]),
+    lambda: make_trainer(CFG, TrainConfig()),
+    lambda: train_main(["--arch", "qwen3-0.6b", "--smoke"]),
+    lambda: make_softecc(18, 64),
+    lambda: SyntheticStream(DataConfig(256, 8, 2)),
+    lambda: Checkpointer(str(ROOT / "build" / "no-ckpt")),
 ], ids=["Engine", "VirtualMemory", "make_pool", "make_index", "build_model",
         "SequenceCache", "make_sharded_pool", "RegionManager",
-        "launch.serve", "creamtop.demo"])
+        "launch.serve", "creamtop.demo", "make_trainer", "launch.train",
+        "make_softecc", "SyntheticStream", "Checkpointer"])
 def test_entry_points_without_cuda_raise(entry, monkeypatch):
-    """No device and no CUDA: raise, never fall back to the CPU."""
+    """No device and no CUDA: raise, never fall back to the CPU, and turn
+    no telemetry plane on (a plane left on would change every later
+    engine's step in the same process)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+    assert not obs.metrics.enabled() and not obs.tracing.enabled()
 
 
 def _help_without_jax(module: str) -> str:
@@ -136,6 +159,16 @@ def test_serve_launcher_cli_imports_no_jax():
     out = _help_without_jax("repro_torch.launch.serve")
     for flag in ("--arch", "--smoke", "--pool-mode", "--secded-rows",
                  "--device"):
+        assert flag in out
+
+
+def test_train_launcher_cli_imports_no_jax():
+    """``python -m repro_torch.launch.train --help``: the training path's
+    import chain (trainer, checkpointer, moment pool, optimizer, data)
+    needs neither JAX nor the reference package."""
+    out = _help_without_jax("repro_torch.launch.train")
+    for flag in ("--arch", "--smoke", "--steps", "--ckpt-dir",
+                 "--microbatch", "--grad-compression", "--device"):
         assert flag in out
 
 

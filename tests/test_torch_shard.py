@@ -476,22 +476,29 @@ def test_routed_read_on_non_cpu_tensors_never_falls_back():
                                       Layout.PARITY, 32, 16, 4)
 
 
+@pytest.mark.parametrize("status", [False, True])
 @pytest.mark.parametrize("layout", [Layout.PARITY, Layout.INTERWRAP],
                          ids=lambda l: l.value)
-def test_routed_read_marshals_the_declared_c_arguments(layout, monkeypatch):
+def test_routed_read_marshals_the_declared_c_arguments(layout, status,
+                                                       monkeypatch):
     seen = []
     monkeypatch.setattr(common, "check_cuda_words", lambda *a: None)
     monkeypatch.setattr(common, "launch",
                         lambda entry, *args: seen.append((entry, args)))
     mixed_ops.read_correct_routed(_meta(4, 8, 9, 16), _meta(5), layout, 32,
-                                  16, 4)
+                                  16, 4, status=status)
     [(entry, args)] = seen
     assert entry == "mixed_read_correct_routed"
     assert len(args) + 1 == len(common.ENTRIES[entry])
     assert all(isinstance(t, torch.Tensor) for t in args[:3])
+    # the status words (a zeroed (n,) int32 vector), or None without status
+    if status:
+        assert args[3].shape == (5,) and args[3].dtype == torch.int32
+    else:
+        assert args[3] is None
     # n, W, interwrap, global rows, S, local boundary, local ebase
     from repro_torch.core.layouts import extra_base_row
-    assert args[3:] == (5, 16, int(layout == Layout.INTERWRAP), 32, 4, 4,
+    assert args[4:] == (5, 16, int(layout == Layout.INTERWRAP), 32, 4, 4,
                         extra_base_row(layout, 4, 16))
 
 
