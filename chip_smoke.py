@@ -223,6 +223,42 @@ exits nonzero:
                   moment pool at mid-run corrected by the scrub (its
                   storage and status equal to the plain sweep's), the loss
                   before and after.
+ 32. serve-olmoe  (run after phase 26) olmoe-1b-7b from the registry at full
+                  width and depth in float32 (16 layers, d 2048, 16 heads
+                  of 128 with qk-norm, 64 experts of d_ff 1024, top 8;
+                  25.78 GiB of seeded weights) serving the serve requests
+                  in cream and secded mode on rows that hold every
+                  session (neither preempts): equal tokens, one mixed read
+                  a step, every SECDED row decoding clean afterwards;
+                  request 0 served alone in slot 0 equal to the dense KV
+                  decode at batch 1 (its routing is the batch of one's:
+                  slot 0's choices come first, and the capacity is 1 in
+                  both); a decode-step profile with the MoE mixers (and
+                  their expert products, aten::bmm) and the attention
+                  blocks in profiler ranges; then a secded run on kv_rows
+                  rows that preempts, its tokens not compared (an MoE
+                  token's output depends on who shares its step);
+ 33. olmoe-reference  olmoe-1b-7b at full width, depth cut to 2 layers:
+                  the serve requests through the engine on the card and
+                  on the CPU from the same weights: identical tokens, the
+                  last decode step's logits within 1e-4;
+ 34. decode-xlstm xlstm-1.3b at full width and depth in float32 (48 blocks,
+                  7 mLSTM + 1 sLSTM a period; 7.24 GiB): 4 prompts of 32
+                  tokens and 16 greedy tokens through prefill_state and
+                  decode_step, equal to the parallel-form forward rerun on
+                  the grown sequence (logits within 1e-2 of their scale:
+                  float32 rounding grows with depth and steps), the
+                  decode state's bytes constant; one period (8 blocks) at
+                  full width on the card and the CPU from the same
+                  weights: equal tokens, logits within 1e-4 of their
+                  scale;
+ 35. families-smoke  olmoe, kimi-k2, jamba and xlstm at smoke():
+                  repro_torch.launch.train --smoke for 3 steps each
+                  (finite losses); repro_torch.launch.serve --smoke
+                  --secded-rows 24 for the two MoE configs on the card and
+                  the CPU (equal JSON but times, one mixed read a step);
+                  jamba's dense decode on the card equal to the CPU's
+                  (tokens, logits within 1e-4).
 
 Phase 2 also holds parity8_write, the PARITY pool's one-pass write,
 bit-exact against its plain version and against the eager chain it
@@ -260,9 +296,9 @@ clock), torch.matmul of the clean A beside it.
 
 Then the card's name and power limit, one JSON line listing every kernel
 with its launches on the serve, serve-shard, cache, campaign, regions,
-writeback, launch-serve, starcoder2, musicgen, prefill-long, seqcache,
-ecc-mlp, telemetry, softecc, train and train-lm phases and its phase-2
-numbers,
+writeback, launch-serve, starcoder2, musicgen, olmoe, xlstm,
+families-smoke, prefill-long, seqcache, ecc-mlp, telemetry, softecc,
+train and train-lm phases and its phase-2 numbers,
 and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 float32 products are full float32.
@@ -1104,12 +1140,14 @@ def _kernel_class(name: str) -> str:
     return "elementwise/other"
 
 
-def decode_profile(torch, np, eng) -> dict:
+def decode_profile(torch, np, eng, ranges: tuple = ()) -> dict:
     """Where a decode step's time goes: PROFILE_STEPS decode steps of the
     engine with every slot busy, timed on the host clock without the
     profiler, then again under ``torch.profiler`` for device kernel time by
-    kernel and by class, and the device's busy share of the window. The
-    B requests it submits are left running."""
+    kernel and by class, and the device's busy share of the window (and
+    the device time inside each profiler range of ``ranges``, see
+    :func:`range_device_ms`). The B requests it submits are left
+    running."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeRequest
@@ -1136,10 +1174,14 @@ def decode_profile(torch, np, eng) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_ms = window()
-    return dict(steps=PROFILE_STEPS, batch=B,
-                step_ms=plain_ms / PROFILE_STEPS,
-                profiled_step_ms=prof_ms / PROFILE_STEPS,
-                **device_breakdown(prof, prof_ms, PROFILE_STEPS))
+    out = dict(steps=PROFILE_STEPS, batch=B,
+               step_ms=plain_ms / PROFILE_STEPS,
+               profiled_step_ms=prof_ms / PROFILE_STEPS,
+               **device_breakdown(prof, prof_ms, PROFILE_STEPS,
+                                  skip=ranges))
+    if ranges:
+        out.update(range_device_ms(prof, ranges, PROFILE_STEPS))
+    return out
 
 
 def phase_profile(torch, np, eng) -> dict:
@@ -1702,17 +1744,19 @@ def telemetry_shard(torch, np, tok_c) -> dict:
 
 
 def device_breakdown(prof, window_ms: float, per: int = 1,
-                     top: int = 12) -> dict:
+                     top: int = 12, skip: tuple = ()) -> dict:
     """Device time seen by ``prof``: by kernel class and by kernel (ms per
     ``per`` steps), the device events and their busy share of a window of
-    ``window_ms``; "not measured" when the profiler saw no device time."""
+    ``window_ms``; "not measured" when the profiler saw no device time.
+    Device events named in ``skip`` (the GPU side of profiler ranges,
+    which span kernels counted already) are left out."""
     from collections import Counter
 
     from torch.autograd import DeviceType
     by_name: Counter = Counter()
     events = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in skip:
             by_name[e.name] += e.time_range.elapsed_us()
             events += 1
     if not by_name:
@@ -3514,6 +3558,11 @@ def run_launcher(argv: list) -> dict:
     return json.loads(buf.getvalue())
 
 
+def untimed(out: dict) -> dict:
+    """The launcher's JSON without its times."""
+    return {k: v for k, v in out.items() if k not in LAUNCH_TIMES}
+
+
 def phase_launch_serve(torch) -> tuple[dict, dict]:
     """The serving launcher at LAUNCH_ARGS on the card (its default
     device) and with --device cpu: equal JSON on every key that is not a
@@ -3525,9 +3574,8 @@ def phase_launch_serve(torch) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches = dict(common.LAUNCHES)
     cpu = run_launcher(LAUNCH_ARGS + ["--device", "cpu"])
-    strip = lambda o: {k: v for k, v in o.items()  # noqa: E731
-                       if k not in LAUNCH_TIMES}
-    check(strip(card) == strip(cpu), f"launcher: card {card} != CPU {cpu}")
+    check(untimed(card) == untimed(cpu),
+          f"launcher: card {card} != CPU {cpu}")
     check(card["requests"] == 8 and card["tokens"] == 8 * 12,
           f"launcher served {card}")
     check(launches.get("mixed_read_correct", 0) == card["decode_steps"],
@@ -3564,6 +3612,16 @@ def dense_greedy(torch, np, model, reqs, n: int) -> list:
         out.append(nxt)
         toks = torch.cat([toks, nxt[:, None]], dim=1)
     return torch.stack(out, dim=1).tolist()
+
+
+def check_rows_clean(pool, what: str) -> None:
+    """Every row of an all-SECDED ``pool`` decodes with status 0 (the
+    SECDED decode kernel over the whole storage)."""
+    from repro_torch.kernels.secded import ops as secded_ops
+    _, _, status = secded_ops.decode(
+        pool.storage[:, :8, :].reshape(pool.num_rows, -1).contiguous(),
+        pool.storage[:, 8, :].contiguous())
+    check(int(status.max()) == 0, f"{what}: SECDED rows do not decode clean")
 
 
 def check_pool_read(torch, eng) -> int:
@@ -3686,6 +3744,429 @@ def phase_serve_musicgen(torch, np) -> tuple[dict, dict]:
     del eng
     torch.cuda.empty_cache()
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 32-35: the model families (MoE, Mamba, xLSTM)
+# ---------------------------------------------------------------------------
+
+OLMOE = "olmoe-1b-7b"
+OLMOE_REF_LAYERS = 2       # olmoe-reference: full width, depth cut to 2
+XLSTM_REQ, XLSTM_PROMPT, XLSTM_NEW = 4, 32, 16
+#: decode-xlstm: the recurrent decode's logits against the parallel form's
+#: rerun, as a share of the largest logit. The two float32 algorithms
+#: part by rounding that grows with depth and with the decode steps the
+#: recurrent state has absorbed: 3.5e-3 at 48 blocks after 15 steps on an
+#: H100, 1e-5 at the CPU tests' smoke size
+XLSTM_LOGIT_REL = 1e-2
+XLSTM_PERIOD_LAYERS = 8    # the CPU twin: one period (7 mLSTM + 1 sLSTM)
+FAMILIES = ("olmoe-1b-7b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b",
+            "xlstm-1.3b")
+MOE_FAMILIES = FAMILIES[:2]
+FAMILY_STEPS = 3           # launch.train --smoke steps per family
+FAMILY_TRAIN_ARGS = ["--smoke", "--steps", str(FAMILY_STEPS)]
+FAMILY_SERVE_ARGS = ["--smoke", "--secded-rows", "24"]
+#: profiler ranges of the MoE decode profile: label -> (module, function)
+MOE_RANGES = {"moe": ("repro_torch.models.moe", "apply_moe"),
+              "attention": ("repro_torch.models.attention",
+                            "apply_attn_decode_paged")}
+
+
+def resident_rows(torch, cfg) -> int:
+    """Pool rows at W that hold all N_REQ sessions' KV (PROMPT + MAX_NEW
+    tokens each) one page a row, so that neither a CREAM nor an all-SECDED
+    pool preempts: a multiple of 8."""
+    from repro_torch.models.transformer import num_attn_layers
+    from repro_torch.serve.paged_kv import token_words_for
+    per_page = 8 * W // token_words_for(cfg.num_kv_heads, cfg.head_dim_,
+                                        torch.float32)
+    need = N_REQ * num_attn_layers(cfg) * -(-(PROMPT + MAX_NEW) // per_page)
+    return -(-(need + 1) // 8) * 8
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.distributed.sharding import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def dense_decode(torch, model, toks, n: int, max_len: int):
+    """``n`` greedy tokens of each row of ``toks`` (B, S) through the dense
+    decode path (``prefill_state``, then ``decode_step``): (tokens as
+    lists, each step's logits (n, B, V) float32 on the CPU, host ms of
+    each decode step, the state's bytes after the prefill and at the
+    end)."""
+    logits, state = model.prefill_state(toks, max_len, logits_mode="last")
+    first = tree_bytes(state)
+    out, lgs, ms = [], [], []
+    for i in range(n):
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok)
+        lgs.append(logits.float().cpu())
+        if i == n - 1:
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.decode_step(state, tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return (torch.stack(out, 1).tolist(), torch.stack(lgs), ms,
+            (first, tree_bytes(state)))
+
+
+@contextlib.contextmanager
+def profiler_ranges(torch, ranges: dict):
+    """Inside, each function of ``ranges`` (label -> (module, name)) runs
+    in a ``torch.profiler.record_function`` range of its label."""
+    import importlib
+    saved = []
+    for label, (mod, name) in ranges.items():
+        module = importlib.import_module(mod)
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
+
+        def ranged(*a, _fn=fn, _label=label, **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+        setattr(module, name, ranged)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def range_device_ms(prof, labels, per: int) -> dict:
+    """Device ms per step of the kernels launched inside each profiler
+    range of ``labels`` (CPU-side ranges: their kernels' summed times), and
+    of those launched by ``aten::bmm`` inside the ``moe`` ranges: the expert
+    products."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    def dev_us(e) -> float:
+        us = getattr(e, "device_time_total", None)
+        return float(us if us is not None else e.cuda_time_total)
+
+    def bmm_us(e) -> float:
+        return sum(dev_us(c) if c.name == "aten::bmm" else bmm_us(c)
+                   for c in e.cpu_children)
+
+    total: Counter = Counter()
+    experts = 0.0
+    for e in prof.events():
+        if e.name in labels and e.device_type == DeviceType.CPU:
+            total[e.name] += dev_us(e)
+            if e.name == "moe":
+                experts += bmm_us(e)
+    if not any(total.values()):
+        return dict(range_time="not measured")
+    return dict(ms_by_range={k: v / 1e3 / per for k, v in total.items()},
+                expert_products_ms=experts / 1e3 / per)
+
+
+def serve_alone(torch, np, eng, req, batched: list) -> dict:
+    """``req``'s prompt served alone on ``eng`` (the parked sessions closed
+    first, so it takes slot 0 and the others stay idle), against the dense
+    KV decode at batch 1 (``prefill_state`` + ``decode_step``): equal
+    tokens. Slot 0's choices come first in the MoE's flattened order and
+    the decode capacity is 1 at batch B as at batch 1, so its routing is
+    the batch of one's. Whether ``batched`` (request 0's tokens in the
+    full run) equals them is printed, not held: in a full batch the
+    request shares the capacity with the others."""
+    from repro_torch.serve import ServeRequest
+    for seq_id, sess in list(eng.sched.sessions.items()):
+        if sess.slot is None:
+            eng.sched.close_session(seq_id)
+    alone = ServeRequest("alone0", req.prompt, MAX_NEW)
+    eng.submit(alone)
+    eng.poll()
+    slots = eng.sched.slots
+    check(slots[0] is not None and slots[0].seq_id == "alone0"
+          and all(s is None for s in slots[1:]), "request 0 not alone")
+    drain(eng)
+    toks = torch.as_tensor(req.prompt[None], device=eng.device)
+    dense, _, ms, _ = dense_decode(torch, eng.model, toks, MAX_NEW, MAX_LEN)
+    check(dense[0] == alone.generated,
+          f"{eng.cfg.name}: request 0 alone differs from the dense decode")
+    return dict(tokens_equal_dense=True,
+                batched_equal_alone=batched == alone.generated,
+                dense_step_ms=statistics.median(ms))
+
+
+def phase_serve_olmoe(torch, np) -> tuple[dict, list]:
+    """olmoe-1b-7b at full width and depth in float32 (25.78 GiB of seeded
+    weights, 64 experts top-8): the serve requests in cream and secded
+    mode on resident_rows rows (neither preempts): equal tokens, one mixed
+    read a decode step, every SECDED row decoding clean after the secded
+    run; request 0 served alone equal to the dense KV decode at batch 1;
+    a decode-step profile of the cream engine with the MoE mixers, their
+    expert products and the attention blocks timed apart; then a secded
+    run on kv_rows rows that preempts, whose tokens are not compared (the
+    MoE's output depends on who shares a step, and preemption changes
+    that)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(OLMOE)
+    rows = resident_rows(torch, cfg)
+    runs, launches, tokens = {}, [], {}
+    for mode in ("cream", "secded"):
+        torch.cuda.reset_peak_memory_stats()
+        eng, reqs, stats, l, wall = serve_full_width(torch, np, OLMOE, mode,
+                                                     rows)
+        launches.append(l)
+        tokens[mode] = [r.generated for r in reqs]
+        check(stats["preemptions"] == 0, f"olmoe {mode} run preempted")
+        runs[mode] = dict(summary(stats, l, wall),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          pool_pages_checked=check_pool_read(torch, eng))
+        if mode == "cream":
+            runs["alone"] = serve_alone(torch, np, eng, reqs[0],
+                                        tokens["cream"][0])
+            with profiler_ranges(torch, MOE_RANGES):
+                runs["profile"] = decode_profile(torch, np, eng,
+                                                 ranges=tuple(MOE_RANGES))
+            drain(eng)
+        else:
+            check_rows_clean(eng.pool, "olmoe-1b-7b")
+            runs[mode]["rows_clean"] = True
+        del eng
+        torch.cuda.empty_cache()
+    check(tokens["cream"] == tokens["secded"],
+          "olmoe-1b-7b: secded tokens differ from cream tokens")
+    check(runs["cream"]["device_pages"] > runs["secded"]["device_pages"],
+          "cream mode must offer more device pages")
+    check(launches[1].get("secded_encode", 0) > 0,
+          "secded mode launched no SECDED encode")
+    small = kv_rows(torch, cfg)
+    eng, reqs, stats, l, wall = serve_full_width(torch, np, OLMOE, "secded",
+                                                 small)
+    launches.append(l)
+    check(stats["preemptions"] > 0, "olmoe secded pool should preempt")
+    check(l.get("secded_decode", 0) > 0,
+          "the preempting secded run launched no SECDED decode")
+    runs["secded_preempting"] = dict(summary(stats, l, wall), rows=small,
+                                     tokens_compared=False)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(model=dict(model_shape(cfg), experts=cfg.num_experts,
+                           top_k=cfg.experts_per_token,
+                           expert_d_ff=cfg.moe_d_ff),
+                params=cfg.param_count(),
+                active_params=cfg.active_param_count(), dtype="float32",
+                rows=rows, row_words=W, tokens_equal=True, **runs), launches
+
+
+def phase_olmoe_reference(torch, np) -> dict:
+    """olmoe-1b-7b at full width with its depth cut to OLMOE_REF_LAYERS,
+    float32: the serve requests through the port's engine on the card and
+    on the CPU from the same weights (same scheduler, so the same batches):
+    identical tokens, the last decode step's logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(get_config(OLMOE), dtype="float32",
+                              num_layers=OLMOE_REF_LAYERS)
+    rows = resident_rows(torch, cfg)
+    engines, last, tokens = {}, {}, {}
+    for dev in ("cpu", DEVICE):
+        eng = Engine(cfg, max_batch=B, max_len=MAX_LEN, mode="cream",
+                     num_rows=rows, row_words=W, seed=SEED, device=dev)
+
+        def keep_logits(*a, _fn=eng.model.decode_step_paged, _dev=dev,
+                        **k):
+            out = _fn(*a, **k)
+            last[_dev] = out[0].float().cpu()
+            return out
+        eng.model.decode_step_paged = keep_logits
+        engines[dev] = eng
+    engines[DEVICE].model.load_state_dict(engines["cpu"].model.state_dict())
+    seconds = {}
+    for dev, eng in engines.items():
+        reqs = requests(np, cfg.vocab_size)
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        seconds[dev] = time.perf_counter() - t0
+        tokens[dev] = [r.generated for r in reqs]
+    check(tokens["cpu"] == tokens[DEVICE],
+          "olmoe-reference: card and CPU decode different tokens")
+    err = float((last[DEVICE] - last["cpu"]).abs().max())
+    check(err <= 1e-4, f"olmoe-reference: last logits differ by {err}")
+    return dict(layers=OLMOE_REF_LAYERS, d_model=cfg.d_model,
+                experts=cfg.num_experts, tokens_equal=True,
+                decode_steps=engines[DEVICE].steps,
+                max_abs_last_logit_err=err, seconds=seconds)
+
+
+def parallel_rerun(torch, model, toks, got: list, lgs) -> list:
+    """The parallel-form forward of ``model`` over each prefix of ``toks``
+    grown by the decoded tokens ``got`` against the dense decode's logits
+    ``lgs`` (n, B, V): equal greedy tokens, logits within
+    XLSTM_LOGIT_REL of their scale. Returns each step's error, as a share
+    of the step's largest parallel logit."""
+    n = len(got[0])
+    grown = torch.cat([toks, torch.as_tensor(got, dtype=torch.int32,
+                                             device=toks.device)], dim=1)
+    rel, pars = [], []
+    for i in range(n):
+        par, _ = model.forward(grown[:, :toks.shape[1] + i],
+                               logits_mode="last")
+        par = par.float().cpu()
+        check(par.argmax(-1).tolist() == [t[i] for t in got],
+              f"xlstm: parallel and recurrent tokens differ at step {i}")
+        rel.append(rel_err(par, lgs[i]))
+        pars.append(par)
+    check(max(rel) <= XLSTM_LOGIT_REL,
+          f"xlstm: logits differ by {max(rel)} of scale")
+    return rel, pars
+
+
+def rel_err(want, got) -> float:
+    """Largest difference as a share of ``want``'s largest magnitude."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_decode_xlstm(torch, np) -> tuple[dict, dict]:
+    """xlstm-1.3b at full width and depth in float32 (48 blocks, 7 mLSTM +
+    1 sLSTM a period, 7.24 GiB): XLSTM_REQ prompts of XLSTM_PROMPT tokens
+    and XLSTM_NEW greedy tokens through the dense decode path, equal to
+    the parallel-form forward rerun on the grown sequence (logits within
+    XLSTM_LOGIT_REL of their scale), the decode state's bytes constant;
+    the same weights on the CPU for one decode step (tokens equal; the
+    two forms' rounding there, and the card's parallel logits against the
+    CPU's, printed); then one period (8 blocks) at full width on the card
+    and on the CPU from the same weights: equal tokens, logits within
+    1e-4 of their scale, and its own parallel rerun on the card (the
+    rounding at one period's depth)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), dtype="float32")
+    rng = np.random.default_rng(SEED + 30)
+    prompts = rng.integers(0, cfg.vocab_size, (XLSTM_REQ, XLSTM_PROMPT))
+    max_len = XLSTM_PROMPT + XLSTM_NEW
+    model = build_model(cfg, seed=SEED, device=DEVICE)
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    t0 = time.perf_counter()
+    got, lgs, ms, (b0, b1) = dense_decode(torch, model, toks, XLSTM_NEW,
+                                          max_len)
+    decode_s = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(b0 == b1, f"decode state grew from {b0} to {b1} bytes")
+    t0 = time.perf_counter()
+    rel, pars = parallel_rerun(torch, model, toks, got, lgs)
+    parallel_s = time.perf_counter() - t0
+    # the same weights on the CPU, one decode step: how far float32
+    # rounding alone parts the two forms at full depth there, and the
+    # card's parallel form from the CPU's
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    ctoks = toks.cpu()
+    c_got, c_lgs, _, _ = dense_decode(torch, model, ctoks, 2, max_len)
+    check(c_got == [t[:2] for t in got],
+          "xlstm: card and CPU decode different tokens at full depth")
+    c_par, _ = model.forward(torch.cat(
+        [ctoks, torch.as_tensor(c_got, dtype=torch.int32)[:, :1]], dim=1),
+        logits_mode="last")
+    cpu_depth = dict(rec_vs_par_rel=rel_err(c_par, c_lgs[1]),
+                     card_par_vs_cpu_par_rel=rel_err(c_par, pars[1]),
+                     card_rec_vs_cpu_rec_rel=rel_err(c_lgs[1], lgs[1]))
+    del model
+
+    twin = dataclasses.replace(cfg, num_layers=XLSTM_PERIOD_LAYERS)
+    cpu = build_model(twin, seed=SEED, device="cpu")
+    card = build_model(twin, seed=SEED, device=DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    tc, lc, _, _ = dense_decode(torch, cpu, toks.cpu(), XLSTM_NEW, max_len)
+    tg, lg, _, _ = dense_decode(torch, card, toks, XLSTM_NEW, max_len)
+    check(tc == tg, "xlstm twin: card and CPU decode different tokens")
+    # float32 rounding on two devices through 8 full-width blocks and 15
+    # steps of recurrent state: held as a share of the logits' scale
+    err = float((lg - lc).abs().max())
+    err_rel = err / float(lc.abs().max())
+    check(err_rel <= 1e-4, f"xlstm twin: logits differ by {err_rel} of "
+          "their scale")
+    twin_rel, _ = parallel_rerun(torch, card, toks, tg, lg)
+    del cpu, card
+    torch.cuda.empty_cache()
+    return dict(model=dict(model_shape(cfg), blocks="7 mLSTM + 1 sLSTM"),
+                params=cfg.param_count(), dtype="float32",
+                requests=XLSTM_REQ, prompt=XLSTM_PROMPT, new=XLSTM_NEW,
+                tokens_equal_parallel=True, max_logit_rel_err=max(rel),
+                logit_rel_err_by_step=rel, logit_rel_tol=XLSTM_LOGIT_REL,
+                state_bytes=b0,
+                decode_step_ms=statistics.median(ms),
+                decode_step_ms_range=[min(ms), max(ms)],
+                ms_per_token=statistics.median(ms) / XLSTM_REQ,
+                decode_s=decode_s, parallel_rerun_s=parallel_s,
+                peak_gib=peak, cpu_first_step=cpu_depth,
+                twin=dict(layers=XLSTM_PERIOD_LAYERS, tokens_equal=True,
+                          max_abs_logit_err=err, max_logit_rel_err=err_rel,
+                          parallel_rel_err_by_step=twin_rel),
+                launches=launches), launches
+
+
+def phase_families_smoke(torch, np) -> tuple[dict, dict]:
+    """Each family's smoke config on the card: repro_torch.launch.train
+    --smoke for FAMILY_STEPS steps (finite losses); for the MoE configs
+    repro_torch.launch.serve FAMILY_SERVE_ARGS on the card and with
+    --device cpu (equal JSON but times, one mixed read a decode step);
+    then jamba's dense decode on the card against the CPU from the same
+    weights (equal tokens, logits within 1e-4)."""
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    out = {}
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    for arch in FAMILIES:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            tr = train.main(["--arch", arch, *FAMILY_TRAIN_ARGS])
+        losses = [float(m["loss"]) for m in tr.metrics_log]
+        check(len(losses) == FAMILY_STEPS
+              and all(np.isfinite(x) for x in losses),
+              f"{arch}: train losses {losses}")
+        out[arch] = dict(train_losses=losses,
+                         train_s=time.perf_counter() - t0,
+                         printed=buf.getvalue().strip().splitlines()[-1])
+        del tr
+        if arch in MOE_FAMILIES:
+            argv = ["--arch", arch, *FAMILY_SERVE_ARGS]
+            before = common.LAUNCHES.get("mixed_read_correct", 0)
+            card = run_launcher(argv)
+            reads = common.LAUNCHES.get("mixed_read_correct", 0) - before
+            with uncounted():
+                cpu = run_launcher(argv + ["--device", "cpu"])
+            check(untimed(card) == untimed(cpu),
+                  f"{arch} launcher: card {card} != CPU {cpu}")
+            check(card["requests"] == 8 and card["tokens"] == 8 * 12,
+                  f"{arch} launcher served {card}")
+            check(reads == card["decode_steps"],
+                  f"{arch}: {reads} mixed reads for {card['decode_steps']} "
+                  "decode steps")
+            out[arch]["serve"] = dict(card=card, equal_cpu=True)
+    launches = dict(common.LAUNCHES)
+    cfg = get_config("jamba-1.5-large-398b").smoke()
+    cpu = build_model(cfg, seed=SEED, device="cpu")
+    card = build_model(cfg, seed=SEED, device=DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(SEED + 31).integers(0, cfg.vocab_size,
+                                                     (2, 16))
+    toks = torch.as_tensor(toks, dtype=torch.int32)
+    tc, lc, _, _ = dense_decode(torch, cpu, toks, 8, 32)
+    tg, lg, _, _ = dense_decode(torch, card, toks.to(DEVICE), 8, 32)
+    check(tc == tg, "jamba: card and CPU decode different tokens")
+    err = float((lg - lc).abs().max())
+    check(err <= 1e-4, f"jamba: card and CPU logits differ by {err}")
+    out["jamba_dense_decode"] = dict(tokens_equal=True, max_abs_logit_err=err)
+    return dict(steps=FAMILY_STEPS, launches=launches, **out), launches
 
 
 # ---------------------------------------------------------------------------
@@ -4282,15 +4763,10 @@ def main() -> int:
     check(st_s["preemptions"] > 0, "secded pool should have preempted")
     check(l_s.get("secded_encode", 0) > 0, "no SECDED encode launched")
     check(l_s.get("secded_decode", 0) > 0, "no SECDED decode launched")
-    from repro_torch.kernels.secded import ops as secded_ops
-    pool = eng.pool
-    _, _, status = secded_ops.decode(
-        pool.storage[:, :8, :].reshape(pool.num_rows, -1).contiguous(),
-        pool.storage[:, 8, :].contiguous())
-    check(int(status.max()) == 0, "SECDED rows do not decode clean")
+    check_rows_clean(eng.pool, "qwen3-0.6b")
     phase("serve-secded", dict(tokens_equal=True, rows_clean=True,
                                **summary(st_s, l_s, wall_s)))
-    del eng, pool
+    del eng
     torch.cuda.empty_cache()
 
     eng, tok_r, st_r, l_r, info, wall_r = serve_phase(torch, np, "cream",
@@ -4343,6 +4819,13 @@ def main() -> int:
     phase("serve-starcoder2", sc2)
     mg, l_mg = phase_serve_musicgen(torch, np)
     phase("serve-musicgen", mg)
+    olmoe, l_ol = phase_serve_olmoe(torch, np)
+    phase("serve-olmoe", olmoe)
+    phase("olmoe-reference", phase_olmoe_reference(torch, np))
+    xl, l_xl = phase_decode_xlstm(torch, np)
+    phase("decode-xlstm", xl)
+    fam, l_fs = phase_families_smoke(torch, np)
+    phase("families-smoke", fam)
 
     from repro_torch.configs.qwen3_0_6b import CONFIG
     from repro_torch.models import build_model
@@ -4363,7 +4846,7 @@ def main() -> int:
     phase("train-lm", lm)
     main_paths = [l_c, l_s, l_r, l_tm, l_ss, *l_z.values(), *l_w.values(),
                   l_d, l_a, l_cs, l_cd, l_rg, l_wb, l_ls, *l_sc2, l_mg,
-                  l_pl, *l_sq, l_em, l_se, l_tr, l_lm]
+                  *l_ol, l_xl, l_fs, l_pl, *l_sq, l_em, l_se, l_tr, l_lm]
     # a PARITY pool's write is one parity8_write; the standalone encode
     # keeps the TPU kernel's contract and is on no main path
     check(not any(l.get("parity8_encode") for l in main_paths),

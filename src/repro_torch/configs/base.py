@@ -75,8 +75,26 @@ class ModelConfig:
         return self.num_layers // self.period
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank_(self) -> int:
+        return self.ssm_dt_rank or max(16, self.d_model // 16)
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    def param_count(self) -> int:
+        """Total parameters (counted exactly from the layer shapes)."""
+        from repro_torch.models.model import count_params
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top-k experts only)."""
+        from repro_torch.models.model import count_params
+        return count_params(self, active_only=True)
 
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU smoke tests."""

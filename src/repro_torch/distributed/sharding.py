@@ -1,8 +1,9 @@
 """Pytree paths and the tree helpers the training path shares.
 
-Port of ``repro/distributed/sharding.py`` :func:`tree_paths` only; the rest
-of that module (mesh axes, partition specs, parameter shardings) is TPU-mesh
-tooling with no one-card counterpart yet (ROADMAP). A tree here is what the
+Port of ``repro/distributed/sharding.py`` :func:`tree_paths` and
+:func:`constraint` (the identity on one card, where no mesh is active);
+the rest of that module (mesh axes, partition specs, parameter shardings)
+is TPU-mesh tooling with no one-card counterpart yet (ROADMAP). A tree here is what the
 reference's pytrees are: nested dicts (and lists / tuples) of tensors.
 :func:`tree_map`, :func:`tree_leaves` and :func:`tree_unflatten` stand in
 for ``jax.tree``'s: like ``jax.tree.map``, :func:`tree_map` rebuilds every
@@ -10,6 +11,13 @@ dict with its keys sorted, so a mapped tree's leaves come in the order the
 reference's do.
 """
 from __future__ import annotations
+
+
+def constraint(x, *spec):
+    """The reference's sharding constraint of ``x`` to ``spec``: with no
+    mesh (one card) it returns ``x``, as the reference does without an
+    active mesh."""
+    return x
 
 
 def tree_paths(tree) -> dict:
