@@ -8,9 +8,12 @@ Usage (from the repository root, on a machine with one NVIDIA GPU)::
 Builds the kernels and turns TF32 off as ``chip_smoke.main`` does, then
 runs each named phase and prints its JSON line, and last the card's name
 and power limit. Phases: ``serve-olmoe``, ``olmoe-reference``,
-``decode-xlstm``, ``families-smoke``, and ``steps``: the serve requests
+``decode-xlstm``, ``families-smoke``, ``steps``: the serve requests
 on qwen3-0.6b and on starcoder2-7b in cream mode, each with a full-batch
-decode profile over 32 steps (host-clock step, device time, launches).
+decode profile over 32 steps (host-clock step, device time, launches),
+and ``roofline``: the serve requests on qwen3-0.6b and on olmoe-1b-7b in
+cream mode, each with a counted full-batch decode profile, then
+``chip_smoke.py``'s roofline phase on them.
 
 ``--root`` takes the phases from another checkout's ``chip_smoke.py``
 and package (its kernels build under its own ``build/``). To compare two
@@ -58,6 +61,22 @@ def steps(cs, torch, np) -> dict:
     return out
 
 
+def roofline(cs, torch, np) -> dict:
+    """The roofline phase, its decode steps from fresh cream engines of
+    qwen3-0.6b and olmoe-1b-7b."""
+    from repro_torch.configs import get_config
+    eng = cs.serve_phase(torch, np, "cream")[0]
+    qwen = cs.decode_profile(torch, np, eng, count=True)
+    del eng
+    torch.cuda.empty_cache()
+    rows = cs.resident_rows(torch, get_config(cs.OLMOE))
+    eng = cs.serve_full_width(torch, np, cs.OLMOE, "cream", rows)[0]
+    olmoe = cs.decode_profile(torch, np, eng, count=True)
+    del eng
+    torch.cuda.empty_cache()
+    return cs.phase_roofline(torch, np, qwen, olmoe)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("phases", nargs="+")
@@ -79,8 +98,8 @@ def main() -> int:
     cs.emit(dict(phase="build", root=str(root),
                  seconds=time.perf_counter() - t0))
     for name in args.phases:
-        if name == "steps":
-            out = steps(cs, torch, np)
+        if name in ("steps", "roofline"):
+            out = {"steps": steps, "roofline": roofline}[name](cs, torch, np)
         else:
             out = getattr(cs, "phase_" + name.replace("-", "_"))(torch, np)
         result = out[0] if isinstance(out, tuple) else out

@@ -259,6 +259,22 @@ exits nonzero:
                   the CPU (equal JSON but times, one mixed read a step);
                   jamba's dense decode on the card equal to the CPU's
                   (tokens, logits within 1e-4).
+ 36. roofline     (run last) (a) python -m repro_torch.launch.dryrun for
+                  qwen3-0.6b's decode_32k and train_4k cells on the fake
+                  (16, 16) mesh, each in a process of its own: ok, with
+                  positive per-device FLOPs, bytes and collective wire
+                  bytes; (b) python -m repro_torch.roofline.analysis over
+                  those records; (c) the card's own floors beside steps
+                  the script runs: qwen3-0.6b's full-batch serve decode
+                  step (phase 5) and olmoe-1b-7b's (phase 32), each
+                  counted once more after its profile by the same
+                  counter (CostCounter, one rank), and qwen3-0.6b's
+                  bfloat16 train step (the launcher's step function at
+                  its defaults, from fresh weights): FLOPs and bytes,
+                  MODEL_FLOPS, the compute and memory terms over the
+                  H100's rates, the measured device time and host-clock
+                  step beside the floor, roofline_frac. These extra steps
+                  launch nothing the kernels line counts.
 
 Phase 2 also holds parity8_write, the PARITY pool's one-pass write,
 bit-exact against its plain version and against the eager chain it
@@ -1140,14 +1156,16 @@ def _kernel_class(name: str) -> str:
     return "elementwise/other"
 
 
-def decode_profile(torch, np, eng, ranges: tuple = ()) -> dict:
+def decode_profile(torch, np, eng, ranges: tuple = (),
+                   count: bool = False) -> dict:
     """Where a decode step's time goes: PROFILE_STEPS decode steps of the
     engine with every slot busy, timed on the host clock without the
     profiler, then again under ``torch.profiler`` for device kernel time by
     kernel and by class, and the device's busy share of the window (and
     the device time inside each profiler range of ``ranges``, see
-    :func:`range_device_ms`). The B requests it submits are left
-    running."""
+    :func:`range_device_ms`); with ``count``, one more step under the
+    roofline's CostCounter (its launches not counted). The B requests it
+    submits are left running."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeRequest
@@ -1181,6 +1199,12 @@ def decode_profile(torch, np, eng, ranges: tuple = ()) -> dict:
                                   skip=ranges))
     if ranges:
         out.update(range_device_ms(prof, ranges, PROFILE_STEPS))
+    if count:
+        from repro_torch.roofline.hlo_parse import CostCounter
+        with uncounted(), CostCounter() as counter:
+            eng.poll()
+        torch.cuda.synchronize()
+        out["count"] = counter.as_dict()
     return out
 
 
@@ -1189,7 +1213,7 @@ def phase_profile(torch, np, eng) -> dict:
     schedule_migration calls of MIG_PAGES pages on this local pool, each
     run beside one full-batch step and read back intact, the second traced
     (stream_overlap)."""
-    prof = decode_profile(torch, np, eng)
+    prof = decode_profile(torch, np, eng, count=True)
     # a scheduled migration on this local pool beside a full-batch step:
     # one to warm the side stream up, one traced. The sessions parked by
     # serve-cream hold the rest of the pool's frames: close them first.
@@ -3924,7 +3948,8 @@ def phase_serve_olmoe(torch, np) -> tuple[dict, list]:
                                         tokens["cream"][0])
             with profiler_ranges(torch, MOE_RANGES):
                 runs["profile"] = decode_profile(torch, np, eng,
-                                                 ranges=tuple(MOE_RANGES))
+                                                 ranges=tuple(MOE_RANGES),
+                                                 count=True)
             drain(eng)
         else:
             check_rows_clean(eng.pool, "olmoe-1b-7b")
@@ -4695,6 +4720,161 @@ def phase_train_lm(torch, np) -> tuple[dict, dict]:
                 launches=launches), launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 36: the roofline
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = ("decode_32k", "train_4k")    # qwen3-0.6b, the (16, 16) mesh
+DRYRUN_TIMEOUT_S = 300
+TRAIN_COUNT_ARGS = dict(seq_len=128, global_batch=8)   # launcher defaults
+TRAIN_TIMED_STEPS = 3
+
+
+def run_module(args: list, timeout: int) -> str:
+    """``python -m <args>`` from the repository root in a process of its
+    own (the dry-run's fake process group is the whole process's); its
+    standard output, or an error with its tail."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                       text=True, timeout=timeout, cwd=ROOT, env=env)
+    check(r.returncode == 0, f"{' '.join(args[:1])} exited {r.returncode}: "
+          f"{r.stdout[-1500:]} {r.stderr[-2500:]}")
+    return r.stdout
+
+
+def train_step_counts(torch, np) -> dict:
+    """qwen3-0.6b's bfloat16 train step (the launcher's step function at
+    its defaults, fresh seeded weights and batch): host-clock ms of
+    TRAIN_TIMED_STEPS steps (median, after a warm-up), the device ms of
+    one under torch.profiler, and one counted by CostCounter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import build_model, params_tree
+    from repro_torch.optim import adamw
+    from repro_torch.roofline.hlo_parse import CostCounter
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(total_steps=100)
+    params = params_tree(build_model(cfg, seed=SEED, device=DEVICE))
+    opt = adamw.init(params)
+    rng = np.random.default_rng(SEED + 36)
+    b, s = TRAIN_COUNT_ARGS["global_batch"], TRAIN_COUNT_ARGS["seq_len"]
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, s + 1)),
+                        dtype=torch.int32, device=DEVICE)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, tcfg)
+
+    def run():
+        out = step(params, opt, batch)
+        torch.cuda.synchronize()
+        return out
+
+    run()
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    with CostCounter() as counter:
+        _, _, metrics = run()
+    check(bool(torch.isfinite(metrics["loss"])), "train step loss not finite")
+    out = dict(batch=b, seq_len=s, step_ms=statistics.median(times),
+               step_ms_all=times, count=counter.as_dict(),
+               **device_breakdown(prof, prof_ms))
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_floor(name: str, arch: str, kind: str, batch: int, seq_len: int,
+               measured: dict) -> dict:
+    """The card's floor of one measured step: its counted FLOPs and bytes
+    (one rank, no collective) through roofline.analysis over the H100's
+    rates, beside the step's device ms and host-clock ms."""
+    from repro_torch.roofline.analysis import analyze_record
+    cnt = measured["count"]
+    rec = dict(arch=arch, shape=name, mesh="card", kind=kind, ok=True,
+               chips=1, global_batch=batch, seq_len=seq_len,
+               hlo_flops=cnt["flops"], hlo_bytes=cnt["bytes"],
+               collectives=cnt["collectives"])
+    r = analyze_record(rec)
+    floor_ms = r.step_s * 1e3
+    dev = measured.get("device_ms")
+    return dict(arch=arch, kind=kind, batch=batch, seq_len=seq_len,
+                flops=cnt["flops"], bytes=cnt["bytes"],
+                model_flops=r.model_flops_per_dev,
+                compute_ms=r.compute_s * 1e3, memory_ms=r.memory_s * 1e3,
+                floor_ms=floor_ms, bound=r.bound,
+                roofline_frac=r.roofline_frac, useful_ratio=r.useful_ratio,
+                device_ms=dev if dev is not None else "not measured",
+                step_ms=measured["step_ms"],
+                floor_over_device=floor_ms / dev if dev else None,
+                floor_over_step=floor_ms / measured["step_ms"])
+
+
+def phase_roofline(torch, np, qwen_decode: dict, olmoe_decode: dict
+                   ) -> dict:
+    """(a) the qwen3-0.6b dry-run cells on the fake (16, 16) mesh, (b)
+    roofline.analysis over their records, (c) the card's floors beside the
+    qwen3-0.6b and olmoe-1b-7b decode steps and the qwen3-0.6b train
+    step."""
+    import shutil
+    out_dir = common_build() / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cells = {}
+    for shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        stdout = run_module(["repro_torch.launch.dryrun", "--arch",
+                             TRAIN_ARCH, "--shape", shape, "--mesh",
+                             "single", "--out", str(out_dir)],
+                            DRYRUN_TIMEOUT_S)
+        rec = json.loads((out_dir / f"{TRAIN_ARCH}__{shape}__pod16x16.json")
+                         .read_text())
+        check(rec["ok"] and "[OK ]" in stdout, f"dry-run {shape}: "
+              f"{rec.get('error')}")
+        for key in ("hlo_flops", "hlo_bytes", "collective_wire_bytes_scaled"):
+            check(rec[key] > 0, f"dry-run {shape}: {key} {rec[key]}")
+        cells[shape] = dict(
+            {k: rec[k] for k in ("hlo_flops", "hlo_bytes",
+                                 "collective_wire_bytes_scaled",
+                                 "argument_size_in_bytes", "lower_s",
+                                 "compile_s")},
+            collectives=rec["collectives"]["count_by_op"],
+            seconds=time.perf_counter() - t0)
+    table = out_dir / "roofline.json"
+    printed = run_module(["repro_torch.roofline.analysis", "--dir",
+                          str(out_dir), "--json-out", str(table)], 120)
+    rows = json.loads(table.read_text())["cells"]
+    check(len(rows) == len(DRYRUN_CELLS) and all(
+        r["step_s"] > 0 for r in rows), f"roofline rows {rows}")
+    train = train_step_counts(torch, np)
+    floors = {
+        "qwen3-0.6b decode": card_floor(
+            "serve_decode", TRAIN_ARCH, "decode", qwen_decode["batch"], 1,
+            qwen_decode),
+        "olmoe-1b-7b decode": card_floor(
+            "serve_decode", OLMOE, "decode", olmoe_decode["batch"], 1,
+            olmoe_decode),
+        "qwen3-0.6b train": card_floor(
+            "train_step", TRAIN_ARCH, "train", train["batch"],
+            train["seq_len"], train)}
+    for name, f in floors.items():
+        check(f["flops"] > 0 and f["bytes"] > 0 and f["floor_ms"] > 0,
+              f"{name}: floor {f}")
+    return dict(dryrun=cells, analysis=rows,
+                analysis_table=printed.strip().splitlines(),
+                card_floors=floors,
+                train_step=dict((k, v) for k, v in train.items()
+                                if k != "count"))
+
+
 def summary(stats: dict, launches: dict, wall: float) -> dict:
     keep = ("tokens", "tokens_per_s", "p50_latency_ms", "p99_latency_ms",
             "decode_steps", "device_pages", "preemptions", "restores",
@@ -4844,6 +5024,8 @@ def main() -> int:
     phase("train", train)
     lm, l_lm = phase_train_lm(torch, np)
     phase("train-lm", lm)
+    phase("roofline", phase_roofline(torch, np, prof_c,
+                                     olmoe["profile"]))
     main_paths = [l_c, l_s, l_r, l_tm, l_ss, *l_z.values(), *l_w.values(),
                   l_d, l_a, l_cs, l_cd, l_rg, l_wb, l_ls, *l_sc2, l_mg,
                   *l_ol, l_xl, l_fs, l_pl, *l_sq, l_em, l_se, l_tr, l_lm]

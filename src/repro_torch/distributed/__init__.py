@@ -1,3 +1,3 @@
-"""Distributed training support on one card: the pytree paths
-(:mod:`.sharding`), the recovery ladder (:mod:`.fault_tolerance`) and
-elastic re-sharding (:mod:`.elastic`) — port of :mod:`repro.distributed`."""
+"""Distribution: the sharding rules and pytree paths (:mod:`.sharding`),
+the recovery ladder (:mod:`.fault_tolerance`) and elastic re-sharding
+(:mod:`.elastic`) — port of :mod:`repro.distributed`."""

@@ -14,8 +14,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import active_mesh, axis_size, constraint
 from repro_torch.kernels.flash_attention import ops as fa
-from repro_torch.models.common import apply_rope, dense_init, rms_norm
+from repro_torch.models.common import (apply_rope, dense_init, rms_norm,
+                                      split_heads)
 
 
 class Attention(nn.Module):
@@ -39,20 +41,49 @@ class Attention(nn.Module):
 
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor):
-    b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = (x @ p.wq).reshape(b, s, hq, hd)
-    k = (x @ p.wk).reshape(b, s, hkv, hd)
-    v = (x @ p.wv).reshape(b, s, hkv, hd)
+    q = split_heads(x @ p.wq, hq, hd)
+    k = split_heads(x @ p.wk, hkv, hd)
+    v = split_heads(x @ p.wv, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return (constraint(q, "data", None, "model", None),
+            constraint(k, "data", None, "model", None),
+            constraint(v, "data", None, "model", None))
 
 
 def _sdpa(q, k, v, causal: bool) -> torch.Tensor:
-    """einsum attention; q (B,S,Hq,D), k/v (B,S,Hkv,D) -> (B,S,Hq,D)."""
+    """einsum attention; q (B,S,Hq,D), k/v (B,S,Hkv,D) -> (B,S,Hq,D).
+
+    GQA under tensor parallelism, as the reference: when Hkv doesn't
+    divide the model axis but Hq does, K/V are repeated to Hq heads first
+    so every attention tensor shards over 'model'. With a mesh, q, k and v
+    are then split by batch and heads alike, and each rank attends over
+    its own shards (Megatron's attention: no collective inside).
+    """
+    hq, hkv = q.shape[2], k.shape[2]
+    g = hq // hkv
+    tp = axis_size("model")
+    if g > 1 and hkv % tp and hq % tp == 0:
+        k = constraint(torch.repeat_interleave(k, g, dim=2),
+                       "data", None, "model", None)
+        v = constraint(torch.repeat_interleave(v, g, dim=2),
+                       "data", None, "model", None)
+    if active_mesh() is None:
+        return _attend(q, k, v, causal)
+    from torch.distributed.tensor import DTensor
+    placements = q.placements
+    k, v = (t.redistribute(q.device_mesh, placements) for t in (k, v))
+    return DTensor.from_local(
+        _attend(q.to_local(), k.to_local(), v.to_local(), causal),
+        q.device_mesh, placements, run_check=False)
+
+
+def _attend(q, k, v, causal: bool) -> torch.Tensor:
+    """The einsum attention of :func:`_sdpa` on plain tensors."""
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, hd)
@@ -88,18 +119,18 @@ def apply_attn(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         out = _sdpa(q, k, v, causal)
     else:
         raise ValueError(f"attention impl {impl!r} is not 'xla' or 'flash'")
-    y = out.reshape(b, s, -1) @ p.wo
+    out = constraint(out, "data", None, "model", None)
+    y = constraint(out.reshape(b, s, -1) @ p.wo, "data", None, None)
     return (y, (k, v)) if return_kv else y
 
 
 def _project_one(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                  pos: torch.Tensor):
     """q (B, 1, Hq, D), k / v (B, 1, Hkv, D) of one token at ``pos`` (B,)."""
-    b = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = (x @ p.wq).reshape(b, 1, hq, hd)
-    k_new = (x @ p.wk).reshape(b, 1, hkv, hd)
-    v_new = (x @ p.wv).reshape(b, 1, hkv, hd)
+    q = split_heads(x @ p.wq, hq, hd)
+    k_new = split_heads(x @ p.wk, hkv, hd)
+    v_new = split_heads(x @ p.wv, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k_new = rms_norm(k_new, p.k_norm, cfg.norm_eps)
@@ -117,21 +148,38 @@ def apply_attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     token's K/V written at ``cache_len`` in place: the caller's cache is
     updated, where the reference returns an updated copy. A sequence whose
     ``cache_len`` has reached ``S_max`` writes nothing, as in the reference.
+    With a mesh active the cache is not written: the reference's masked
+    update makes new K/V, sharded on S_max as the cache is (over 'model',
+    both axes at B == 1), so no shard leaves its rank.
     """
     b = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     pos = cache_len                                    # (B,) current lengths
     q, k_new, v_new = _project_one(p, cfg, x, pos)
     ck, cv = kv_cache
-    rows = torch.arange(b, device=x.device)
-    at = pos.clamp(max=ck.shape[1] - 1)
-    fits = (pos < ck.shape[1])[:, None, None]
-    ck[rows, at] = torch.where(fits, k_new[:, 0].to(ck.dtype), ck[rows, at])
-    cv[rows, at] = torch.where(fits, v_new[:, 0].to(cv.dtype), cv[rows, at])
-
-    qg = q.reshape(b, hkv, hq // hkv, hd)
     span = torch.arange(ck.shape[1], device=x.device)[None, :]
-    valid = span <= pos[:, None]                               # (B, S_max)
+    bax = None if b == 1 else "data"
+    seq_ax = ("data", "model") if b == 1 else "model"
+    if active_mesh() is None:
+        rows = torch.arange(b, device=x.device)
+        at = pos.clamp(max=ck.shape[1] - 1)
+        fits = (pos < ck.shape[1])[:, None, None]
+        ck[rows, at] = torch.where(fits, k_new[:, 0].to(ck.dtype),
+                                   ck[rows, at])
+        cv[rows, at] = torch.where(fits, v_new[:, 0].to(cv.dtype),
+                                   cv[rows, at])
+    else:
+        at_pos = constraint(span == pos[:, None], bax, seq_ax)
+        at_pos = at_pos[:, :, None, None]
+        ck = constraint(torch.where(at_pos, k_new.to(ck.dtype), ck),
+                        bax, seq_ax, None, None)
+        cv = constraint(torch.where(at_pos, v_new.to(cv.dtype), cv),
+                        bax, seq_ax, None, None)
+
+    # the cache is split along S_max, so every rank needs all of q's heads
+    q = constraint(q, bax, None, None, None)
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    valid = constraint(span <= pos[:, None], bax, seq_ax)      # (B, S_max)
     logits = torch.einsum("bhgd,bshd->bhgs", qg.float(),
                           ck.float()) / (hd ** 0.5)
     logits = torch.where(valid[:, None, None, :], logits, float("-inf"))

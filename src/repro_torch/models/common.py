@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import axis_size, constraint
+
 
 def dense_init(shape: tuple[int, ...], gen: torch.Generator,
                fan_in: int | None = None, dtype=torch.float32) -> nn.Parameter:
@@ -24,6 +26,15 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
     scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     return (x32 * scale * gamma.float()).to(x.dtype)
+
+
+def split_heads(t: torch.Tensor, h: int, dh: int) -> torch.Tensor:
+    """(..., h·dh) -> (..., h, dh). With a mesh whose model axis does not
+    divide ``h``, the last dim is gathered first: a sharded dim splits
+    only into a multiple of its shards."""
+    if h % axis_size("model"):
+        t = constraint(t, "data", *(None,) * (t.dim() - 1))
+    return t.reshape(*t.shape[:-1], h, dh)
 
 
 class RMSNorm(nn.Module):
@@ -91,7 +102,7 @@ def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(x @ p.w_gate) * (x @ p.w_up)
     else:       # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ p.w_up, approximate="tanh")
-    return h @ p.w_down
+    return constraint(h, "data", None, "model") @ p.w_down
 
 
 class Embedding(nn.Module):
@@ -106,8 +117,13 @@ class Embedding(nn.Module):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token NLL in float32. logits (B, S, V); labels (B, S) int."""
+    """Mean token NLL in float32. logits (B, S, V); labels (B, S) int.
+
+    The gold logit is a masked sum over the vocabulary, as the reference
+    takes it: it partitions with vocab-sharded logits, where a gather would
+    collect them whole."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
     return (logz - gold).mean()

@@ -56,6 +56,13 @@ def route(p, cfg: ModelConfig, xt: torch.Tensor):
     return probs, idx, gates / gates.sum(dim=-1, keepdim=True)
 
 
+def _counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """How often each of ``e`` expert ids occurs in ``ids``: a bincount
+    whose shape does not depend on the data (a dry-run traces it)."""
+    return torch.zeros(e, dtype=torch.int64, device=ids.device) \
+        .scatter_add(0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
+
+
 def dispatch(cfg: ModelConfig, idx: torch.Tensor, c: int):
     """Queue slots of the flattened (token, choice) pairs: ``(slot, keep)``
     each (T·k,), ``slot`` = expert·C + queue position for a kept pair and
@@ -65,11 +72,11 @@ def dispatch(cfg: ModelConfig, idx: torch.Tensor, c: int):
     e = cfg.num_experts
     flat = idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=e)
+    counts = _counts(flat, e)
     starts = torch.cumsum(counts, 0) - counts
-    pos = torch.empty_like(flat)
-    pos[order] = torch.arange(flat.numel(), device=flat.device) \
-        - starts[flat[order]]
+    pos = torch.empty_like(flat).index_put(
+        (order,), torch.arange(flat.numel(), device=flat.device)
+        - starts[flat[order]])
     keep = pos < c
     return torch.where(keep, flat * c + pos, e * c), keep
 
@@ -88,7 +95,7 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
     probs, idx, gates = route(p, cfg, xt)
 
     # Switch-style load-balance aux loss: E * sum_e f_e * P_e
-    fe = torch.bincount(idx[:, 0], minlength=e).float() / t
+    fe = _counts(idx[:, 0], e).float() / t
     aux = e * torch.sum(fe * probs.mean(dim=0))
 
     c = moe_capacity(cfg, t)

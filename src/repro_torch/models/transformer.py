@@ -33,6 +33,10 @@ pos{i}/{norm1,block,norm2,mixer}/...`` stacked over stages;
 (``torch.utils.checkpoint``; the reference's ``jax.checkpoint`` of each
 stage). The reference trains with einsum attention: the flash kernel has
 no backward there or here, and its wrapper raises under autograd.
+:func:`decode_step_fn` is the reference's ``decode_step`` over the same
+trees (the dry-run's decode cell). The tree functions place activations
+with :func:`repro_torch.distributed.sharding.constraint` where the
+reference does: identities with no mesh.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import BlockKind, MixerKind, ModelConfig
+from repro_torch.distributed.sharding import active_mesh, constraint
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention, moe, ssm, xlstm
 from repro_torch.models.common import (MLP, Embedding, RMSNorm, apply_mlp,
@@ -120,6 +125,33 @@ def _mix(kind: MixerKind, norm2, p, cfg: ModelConfig, x: torch.Tensor):
         return x + apply_mlp(p, h), None
     y, aux = moe.apply_moe(p, cfg, h)
     return x + y, aux
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device=None) -> dict:
+    """Zeroed decode state: ``cache_len`` (B,) int32 and, per pattern
+    position ``i``, ``pos{i}``: K/V of (num_stages, B, max_len, Hkv, D)
+    for attention, the recurrent block's initial state stacked over
+    stages for the others."""
+    ns, dtype = cfg.num_stages, cfg.activation_dtype
+    state = {"cache_len": torch.zeros((batch,), dtype=torch.int32,
+                                      device=device)}
+    for i, (bk, _) in enumerate(cfg.pattern):
+        if bk == BlockKind.ATTN:
+            shape = (ns, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+            one = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                   "v": torch.zeros(shape, dtype=dtype, device=device)}
+        else:
+            if bk == BlockKind.MAMBA:
+                one = ssm.init_ssm_state(cfg, batch, dtype, device)
+            elif bk == BlockKind.MLSTM:
+                one = xlstm.init_mlstm_state(cfg, batch, device)
+            else:
+                one = xlstm.init_slstm_state(cfg, batch, device)
+            one = {n: t.expand(ns, *t.shape).clone()
+                   for n, t in one.items()}
+        state[f"pos{i}"] = one
+    return state
 
 
 class Block(nn.Module):
@@ -235,31 +267,10 @@ class Transformer(nn.Module):
     # -- the dense decode path -----------------------------------------------
 
     def init_decode_state(self, batch: int, max_len: int) -> dict:
-        """Zeroed decode state: ``cache_len`` (B,) int32 and, per pattern
-        position ``i``, ``pos{i}``: K/V of (num_stages, B, max_len, Hkv, D)
-        for attention, the recurrent block's initial state stacked over
-        stages for the others."""
-        cfg = self.cfg
-        dev = self.embed.table.device
-        ns, dtype = cfg.num_stages, cfg.activation_dtype
-        state = {"cache_len": torch.zeros((batch,), dtype=torch.int32,
-                                          device=dev)}
-        for i, (bk, _) in enumerate(cfg.pattern):
-            if bk == BlockKind.ATTN:
-                shape = (ns, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
-                one = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            else:
-                if bk == BlockKind.MAMBA:
-                    one = ssm.init_ssm_state(cfg, batch, dtype, dev)
-                elif bk == BlockKind.MLSTM:
-                    one = xlstm.init_mlstm_state(cfg, batch, dev)
-                else:
-                    one = xlstm.init_slstm_state(cfg, batch, dev)
-                one = {n: t.expand(ns, *t.shape).clone()
-                       for n, t in one.items()}
-            state[f"pos{i}"] = one
-        return state
+        """Zeroed decode state on the model's device
+        (:func:`init_decode_state`)."""
+        return init_decode_state(self.cfg, batch, max_len,
+                                 self.embed.table.device)
 
     @torch.no_grad()
     def prefill_state(self, tokens: torch.Tensor, max_len: int,
@@ -357,12 +368,15 @@ def _stage(cfg: ModelConfig, attn_impl: str, x: torch.Tensor, stage: dict):
         h = rms_norm(x, entry["norm1"], cfg.norm_eps)
         y, _ = _block_full(bk, SimpleNamespace(**entry["block"]), cfg, h,
                            attn_impl, False)
-        mixer = entry.get("mixer")
-        x, a = _mix(mk, entry.get("norm2"),
-                    None if mixer is None else SimpleNamespace(**mixer),
-                    cfg, x + y)
+        x, a = _mix(mk, entry.get("norm2"), _mixer_of(entry), cfg, x + y)
         aux = _add(aux, a)
+        x = constraint(x, "data", None, None)
     return x, aux
+
+
+def _mixer_of(entry: dict):
+    mixer = entry.get("mixer")
+    return None if mixer is None else SimpleNamespace(**mixer)
 
 
 def _unstack(tree: dict, n: int) -> list[dict]:
@@ -374,15 +388,57 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     return list(tree.unbind(0))
 
 
+def _restack(trees: list[dict]) -> dict:
+    """The inverse of :func:`_unstack`: each leaf stacked on axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _restack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding of ``tokens``, batch over 'data'. With a mesh the
+    table is gathered (as ZeRO-3 gathers a weight before its use) and
+    each rank looks up its own tokens; the table's gradient comes back as
+    partial sums."""
+    table = params["embed"]["table"]
+    if active_mesh() is None:
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    table = constraint(table, None, None)
+    # partial over the mesh dims that split the tokens, whole over the rest
+    grads = [Partial() if p.is_shard() else Replicate()
+             for p in tokens.placements]
+    local = table.to_local(grad_placements=grads)[tokens.to_local()]
+    x = DTensor.from_local(local, tokens.device_mesh, tokens.placements,
+                           run_check=False)
+    return constraint(x, "data", None, None)
+
+
+def _lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
+               spec: tuple | None) -> torch.Tensor:
+    """The LM head of the final hidden state; ``spec`` is the logits'
+    sharding constraint (None: unconstrained)."""
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["table"].T
+    else:
+        logits = x @ params["lm_head"]["w"]
+    return logits if spec is None else constraint(logits, *spec)
+
+
 def forward_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-               attn_impl: str = "xla", remat: str = "none"
+               attn_impl: str = "xla", remat: str = "none",
+               logits_mode: str = "all"
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V), aux loss), grad-enabled: the
-    reference's ``forward`` over its parameter tree. ``remat`` ``"block"``
-    or ``"full"`` recomputes each stage in the backward pass."""
+    """tokens (B, S) -> (logits, aux loss), grad-enabled: the reference's
+    ``forward`` over its parameter tree. ``remat`` ``"block"`` or
+    ``"full"`` recomputes each stage in the backward pass.
+    ``logits_mode="all"`` gives (B, S, V); ``"last"`` gives (B, V) for the
+    final position only."""
     if remat not in REMATS:
         raise ValueError(f"remat {remat!r} not in {REMATS}")
-    x = params["embed"]["table"][tokens]
+    if logits_mode not in ("all", "last"):
+        raise ValueError(f"logits_mode {logits_mode!r}")
+    x = _embed(params, tokens)
     aux = None
     for stage in _unstack(params["stages"], cfg.num_stages):
         if remat == "none":
@@ -393,10 +449,10 @@ def forward_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 use_reentrant=False)
         aux = _add(aux, a)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].T
-    else:
-        logits = x @ params["lm_head"]["w"]
+    if logits_mode == "last":
+        x = x[:, -1, :]
+    spec = ("data",) + ((None,) if logits_mode == "all" else ()) + ("model",)
+    logits = _lm_logits(params, cfg, x, spec)
     return logits, torch.zeros((), device=x.device) if aux is None else aux
 
 
@@ -407,3 +463,51 @@ def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     gradient to every leaf of ``params`` that requires one."""
     logits, aux = forward_fn(params, cfg, tokens, attn_impl, remat)
     return cross_entropy(logits, labels) + aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# The dense decode step over the parameter tree (the dry-run's)
+# ---------------------------------------------------------------------------
+
+
+def decode_stage(cfg: ModelConfig, sp: dict, st: dict, x: torch.Tensor,
+                 cache_len: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One stage of decode: (stage params, stage state, x (B, 1, d)) ->
+    (x, the stage's new state)."""
+    new_st = {}
+    for i, (bk, mk) in enumerate(cfg.pattern):
+        entry = sp[f"pos{i}"]
+        h = rms_norm(x, entry["norm1"], cfg.norm_eps)
+        blk = SimpleNamespace(**entry["block"])
+        if bk == BlockKind.ATTN:
+            kv = st[f"pos{i}"]
+            y, (ck, cv) = attention.apply_attn_decode(
+                blk, cfg, h, (kv["k"], kv["v"]), cache_len)
+            new_st[f"pos{i}"] = {"k": ck, "v": cv}
+        else:
+            y, new_st[f"pos{i}"] = _DECODES[bk](blk, cfg, h, st[f"pos{i}"])
+        x, _ = _mix(mk, entry.get("norm2"), _mixer_of(entry), cfg, x + y)
+    return x, new_st
+
+
+def decode_step_fn(params: dict, cfg: ModelConfig, state: dict,
+                   tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One decode step over the reference's parameter tree and state tree
+    (``init_decode_state``'s): tokens (B,) -> (logits (B, V), new state),
+    as the reference's ``decode_step``. Without a mesh the attention
+    caches are written in place (:func:`attention.apply_attn_decode`)."""
+    x = _embed(params, tokens[:, None])
+    cache_len = state["cache_len"]
+    per_stage = {k: v for k, v in state.items() if k != "cache_len"}
+    news = []
+    for sp, st in zip(_unstack(params["stages"], cfg.num_stages),
+                      _unstack(per_stage, cfg.num_stages)):
+        x, st = decode_stage(cfg, sp, st, x, cache_len)
+        news.append(st)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _lm_logits(params, cfg, x,
+                        None if cfg.tie_embeddings else ("data", None,
+                                                         "model"))
+    new_state = _restack(news)
+    new_state["cache_len"] = cache_len + 1
+    return logits[:, 0], new_state

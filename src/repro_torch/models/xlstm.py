@@ -26,7 +26,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constraint
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import dense_init, rms_norm, split_heads
 from repro_torch.models.ssm import _causal_conv
 
 PF = 2          # mLSTM up-projection factor
@@ -46,6 +46,12 @@ def _headwise(h: int, dh: int, gen: torch.Generator, dtype) -> nn.Parameter:
 def _apply_headwise(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, H, dh) @ w (H, dh, dh) -> (B, S, H, dh)."""
     return torch.einsum("bshd,hde->bshe", x, w)
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log σ(x) as ``jax.nn.log_sigmoid`` computes it, -logaddexp(-x, 0)
+    (whose gradient DTensor can also partition)."""
+    return -torch.logaddexp(-x, torch.zeros_like(x))
 
 
 def _ones(d: int, device) -> nn.Parameter:
@@ -79,14 +85,14 @@ class MLSTM(nn.Module):
 def _mlstm_qkv(p, cfg: ModelConfig, u: torch.Tensor):
     """u (B, S, dc) -> q, k, v (B, S, H, dh) and float32 gate
     pre-activations (B, S, H)."""
-    b, s, dc = u.shape
+    dc = u.shape[-1]
     h = cfg.num_heads
     dh = dc // h
     conv_u, _ = _causal_conv(u, p.conv_w)
-    heads = F.silu(conv_u).reshape(b, s, h, dh)
+    heads = split_heads(F.silu(conv_u), h, dh)
     q = _apply_headwise(p.wq, heads)
     k = _apply_headwise(p.wk, heads) / (dh ** 0.5)
-    v = _apply_headwise(p.wv, u.reshape(b, s, h, dh))
+    v = _apply_headwise(p.wv, split_heads(u, h, dh))
     i_pre = u.float() @ p.wi                           # (B, S, H)
     f_pre = u.float() @ p.wf
     return q, k, v, i_pre, f_pre
@@ -102,7 +108,7 @@ def _mlstm_parallel(p, cfg: ModelConfig, x: torch.Tensor,
     dc = u.shape[-1]
     q, k, v, i_pre, f_pre = _mlstm_qkv(p, cfg, u)
 
-    cum_f = torch.cumsum(F.logsigmoid(f_pre), dim=1)    # (B, S, H)
+    cum_f = torch.cumsum(_log_sigmoid(f_pre), dim=1)    # (B, S, H)
     # D̃_ij = F_i − F_j + ĩ_j  (j ≤ i)
     dmat = cum_f[:, :, None, :] - cum_f[:, None, :, :] + i_pre[:, None, :, :]
     ii = torch.arange(s, device=x.device)
@@ -113,7 +119,8 @@ def _mlstm_parallel(p, cfg: ModelConfig, x: torch.Tensor,
     smat = qk * torch.exp(dmat - m)
     norm = smat.sum(dim=2)                              # (B, S, H)
     denom = torch.maximum(norm.abs(), torch.exp(-m[:, :, 0, :]))
-    hout = torch.einsum("bijh,bjhd->bihd", smat, v.float()) / denom[..., None]
+    hout = torch.einsum("bijh,bjhd->bihd", smat.contiguous(),
+                        v.float().contiguous()) / denom[..., None]
     hout = rms_norm(hout, p.gn, cfg.norm_eps).to(x.dtype)
     out = constraint(hout.reshape(b, s, dc) * F.silu(z), "data", None,
                      "model")
@@ -174,14 +181,14 @@ def apply_mlstm_decode(p, cfg: ModelConfig, x: torch.Tensor,
 
     conv_u, conv_carry = _causal_conv(u, p.conv_w,
                                       state["conv"].to(u.dtype))
-    heads = F.silu(conv_u).reshape(b, 1, hh, dh)
+    heads = split_heads(F.silu(conv_u), hh, dh)
     q = _apply_headwise(p.wq, heads)[:, 0].float()
     k = (_apply_headwise(p.wk, heads)[:, 0] / (dh ** 0.5)).float()
-    v = _apply_headwise(p.wv, u.reshape(b, 1, hh, dh))[:, 0].float()
+    v = _apply_headwise(p.wv, split_heads(u, hh, dh))[:, 0].float()
     i_pre = (u.float() @ p.wi)[:, 0]                    # (B, H)
     f_pre = (u.float() @ p.wf)[:, 0]
 
-    log_f = F.logsigmoid(f_pre)
+    log_f = _log_sigmoid(f_pre)
     m_new = torch.maximum(log_f + state["m"], i_pre)
     i_g = torch.exp(i_pre - m_new)[..., None]           # (B, H, 1)
     f_g = torch.exp(log_f + state["m"] - m_new)[..., None]
@@ -226,7 +233,7 @@ def _slstm_step(p, carry, wx: dict):
     z = torch.tanh(mix("z"))
     o = torch.sigmoid(mix("o"))
     i_pre = mix("i")
-    log_f = F.logsigmoid(mix("f"))
+    log_f = _log_sigmoid(mix("f"))
     m_new = torch.maximum(log_f + m, i_pre)
     i_g = torch.exp(i_pre - m_new)
     f_g = torch.exp(log_f + m - m_new)
@@ -253,7 +260,7 @@ def apply_slstm(p, cfg: ModelConfig, x: torch.Tensor,
     b, s, d = x.shape
     hh = cfg.num_heads
     dh = d // hh
-    wx = {g: (x @ getattr(p, f"w_{g}gate")).float().reshape(b, s, hh, dh)
+    wx = {g: split_heads((x @ getattr(p, f"w_{g}gate")).float(), hh, dh)
           for g in GATES}
     if state is None:
         state = init_slstm_state(cfg, b, x.device)

@@ -345,8 +345,22 @@ def test_train_launcher_prints_both_lines(tmp_path):
     assert lines[1].startswith("qwen3-0.6b-smoke: loss ")
 
 
-def test_train_launcher_refuses_tpu_meshes():
-    for flag in ("--production-mesh", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_launch.main(["--arch", "qwen3-0.6b", "--smoke", flag,
+def test_train_launcher_refuses_tpu_meshes(monkeypatch):
+    """``--production-mesh`` (with ``--multi-pod``: the 512-rank mesh)
+    goes through ``make_production_mesh``, which raises its world-size
+    error in one process."""
+    built = []
+    real = train_launch.make_production_mesh
+
+    def spy(**kw):
+        built.append(kw)
+        return real(**kw)
+
+    monkeypatch.setattr(train_launch, "make_production_mesh", spy)
+    for flags, ranks in ((["--production-mesh"], 256),
+                         (["--production-mesh", "--multi-pod"], 512)):
+        with pytest.raises(ValueError, match=f"needs {ranks} ranks; the "
+                           "process group has 1"):
+            train_launch.main(["--arch", "qwen3-0.6b", "--smoke", *flags,
                                "--device", "cpu"])
+    assert built == [{"multi_pod": False}, {"multi_pod": True}]
