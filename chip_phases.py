@@ -11,9 +11,11 @@ and power limit. Phases: ``serve-olmoe``, ``olmoe-reference``,
 ``decode-xlstm``, ``families-smoke``, ``steps``: the serve requests
 on qwen3-0.6b and on starcoder2-7b in cream mode, each with a full-batch
 decode profile over 32 steps (host-clock step, device time, launches),
-and ``roofline``: the serve requests on qwen3-0.6b and on olmoe-1b-7b in
+``roofline``: the serve requests on qwen3-0.6b and on olmoe-1b-7b in
 cream mode, each with a counted full-batch decode profile, then
-``chip_smoke.py``'s roofline phase on them.
+``chip_smoke.py``'s roofline phase on them, and ``mesh``: CREAM-Shard's
+banks across min(cards, 4) ranks, and with 4 the data-parallel training
+(run it on a machine with four cards: ``python3 chip_phases.py mesh``).
 
 ``--root`` takes the phases from another checkout's ``chip_smoke.py``
 and package (its kernels build under its own ``build/``). To compare two

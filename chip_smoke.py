@@ -275,6 +275,24 @@ exits nonzero:
                   H100's rates, the measured device time and host-clock
                   step beside the floor, roofline_frac. These extra steps
                   launch nothing the kernels line counts.
+ 37. mesh         (run after phase 20; ``chip_phases.py mesh`` alone) N =
+                  the cards, at most 4, ranks under ``python -m
+                  torch.distributed.run --nproc-per-node N`` in an NCCL
+                  group, one card a rank: serve-shard's requests and
+                  geometry on a pool of N banks, one a rank (the mesh
+                  read: one shard-local routed launch and one all-reduce
+                  a gather; three 64-page migrations across banks over
+                  the ring beside a step when N > 1), and the same on one
+                  card in this process first: rank 0 gathers the banks,
+                  tokens and every bank's storage equal the one-card
+                  pool's, every rank's tokens equal; each rank's median
+                  step and the step's all-reduce timed alone beside it.
+                  With N = 4 also qwen3-0.6b trained data-parallel by the
+                  launcher on the (4, 1) host mesh (20 steps, batch 8,
+                  sequence 128, bfloat16), after a one-card run here: the
+                  losses within 2e-2 relative of the one-card run's, the
+                  parameters bit-identical across the ranks, each rank's
+                  step time, tokens/s and gradient all-reduce.
 
 Phase 2 also holds parity8_write, the PARITY pool's one-pass write,
 bit-exact against its plain version and against the eager chain it
@@ -299,7 +317,10 @@ with the wrapper's zero fill beside the data-only read. It holds the
 router-fused mixed read bit-exact on every page id of the serve-shard
 pool and of a 16384-row pool in 8 banks, with planted flips, and its
 status output on the serve-shard pool (data and status bit-exact, every
-status present, timed beside the status-free launch); and
+status present, timed beside the status-free launch); its shard-local
+form (one bank and its index, the other banks' rows zero: the mesh
+read's launch) on every bank of the serve-shard pool, with and without
+status, bit-exact, the banks' shares summing to the all-banks read; and
 ecc_matmul at qwen3-0.6b's MLP shapes over 4096 tokens and 4, a ragged
 shape, the decode threshold and the reference sweep's, with single
 data-bit flips in a seeded 1 % of the weight beats and some code-bit
@@ -314,7 +335,8 @@ Then the card's name and power limit, one JSON line listing every kernel
 with its launches on the serve, serve-shard, cache, campaign, regions,
 writeback, launch-serve, starcoder2, musicgen, olmoe, xlstm,
 families-smoke, prefill-long, seqcache, ecc-mlp, telemetry, softecc,
-train and train-lm phases and its phase-2 numbers,
+train, train-lm and mesh phases (the mesh's summed over its ranks) and
+its phase-2 numbers,
 and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 float32 products are full float32.
@@ -428,6 +450,9 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:67"),
     "mixed_read_correct_routed": ("src/repro_torch/csrc/mixed.cu",
                                   "src/repro/kernels/mixed/kernel.py:139"),
+    "mixed_read_correct_routed_local": (
+        "src/repro_torch/csrc/mixed.cu",
+        "src/repro/kernels/mixed/kernel.py:139"),
     "ecc_matmul": ("src/repro_torch/csrc/ecc_matmul.cu",
                    "src/repro/kernels/ecc_matmul/kernel.py:61"),
 }
@@ -1134,7 +1159,8 @@ def serve_phase(torch, np, mode: str, repartition: bool = False):
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
-    for key, cls in (("hash_lookup_read", "hash probe+gather"),
+    for key, cls in (("nccl", "collective"),
+                     ("hash_lookup_read", "hash probe+gather"),
                      ("interwrap", "interwrap gather/scatter"),
                      ("flash_attention", "flash attention"),
                      ("parity8", "parity8 codec"),
@@ -2804,6 +2830,8 @@ def phase_routed_kernel(torch, np, dev) -> dict:
             check(r["status_variant"]["max_abs_err"] == 0,
                   "routed read with status disagrees with its plain version")
             del st_k, st_p
+            local_row = routed_local_row(torch, np, sto, ids, rows, boundary,
+                                         S, got)
         else:
             r.update(ms=median_ms(lambda: ops.read_correct_routed(*args), 5))
         shapes[name] = r
@@ -2813,7 +2841,63 @@ def phase_routed_kernel(torch, np, dev) -> dict:
                max_abs_err=max(r["max_abs_err"] for r in shapes.values()))
     check(row["max_abs_err"] == 0,
           "mixed_read_correct_routed disagrees with its plain version")
-    return {"mixed_read_correct_routed": row}
+    check(local_row["max_abs_err"] == 0,
+          "mixed_read_correct_routed_local disagrees with its plain version")
+    return {"mixed_read_correct_routed": row,
+            "mixed_read_correct_routed_local": local_row}
+
+
+def routed_local_row(torch, np, sto, ids, rows: int, boundary: int, S: int,
+                     assembled) -> dict:
+    """The shard-local routed read, the launch a banks mesh's read makes
+    on each rank: bank s's (R_local, 9, W) slice of the serve-shard pool
+    and its index, every page id, with and without status, bit-exact
+    against the plain version for every bank; the other banks' rows
+    zero, and the banks' shares summing to the all-banks read. Timed on
+    bank 0; the yardstick is the uncorrected indexing gather of the
+    bank's rows (the owned ids, the others at local 0)."""
+    from repro_torch.core.layouts import REGION_SECDED, Layout, page_coords
+    from repro_torch.kernels.mixed import ops, ref
+    from repro_torch.shard import router
+    D = 8 * W
+    shard, local = router.route(ids, rows, S)
+    acc = torch.zeros_like(assembled)
+    err = 0
+    for s in range(S):
+        args = (sto[s], ids, Layout.INTERWRAP, rows, boundary, S)
+        got = ops.read_correct_routed_local(*args, s)
+        err = max(err, words_err(got, ref.read_correct_routed_local(*args,
+                                                                    s)))
+        check(not got[shard != s].any(), f"bank {s}: foreign rows not zero")
+        acc += got
+        err = max(err, max_abs_err(
+            ops.read_correct_routed_local(*args, s, status=True),
+            ref.read_correct_routed_local(*args, s, status=True)))
+        del got
+    check(torch.equal(acc, assembled),
+          "the banks' shares do not sum to the all-banks read")
+    del acc
+    args = (sto[0], ids, Layout.INTERWRAP, rows, boundary, S)
+    own = shard == 0
+    grow, lanes, region = page_coords(Layout.INTERWRAP, rows // S,
+                                      boundary // S,
+                                      torch.where(own, local, 0), W)
+    bank = sto[0]
+    lib = lambda: bank[grow, lanes]  # noqa: E731  (yardstick only)
+    n, n_own = ids.numel(), int(own.sum())
+    n_sec = int((own & (region == REGION_SECDED)).sum())
+    torch.cuda.synchronize()
+    # each input read once: every owned page and its code slice if
+    # SECDED, the ids; every page of the batch written once (zeros too)
+    return dict(banks=S, pages=n, owned_pages=n_own, owned_secded_pages=n_sec,
+                max_abs_err=err,
+                ms=median_ms(lambda: ops.read_correct_routed_local(
+                    *args, 0), 20),
+                plain_ms=median_ms(
+                    lambda: ref.read_correct_routed_local(*args, 0), 3),
+                library_ms=median_ms(lib, 20),
+                bound=bound_ms(4 * (n_own * D + n_sec * W + n * D + n),
+                               48 * n_sec * D // 2))
 
 
 def plant_ecc_flips(torch, np, bits, codes, rng, doubles: int):
@@ -3273,6 +3357,290 @@ def phase_serve_shard(torch, np, tok_c) -> tuple[dict, dict]:
                 tokens_equal=True,
                 preemptions=eng.sched.stats.get("preemptions"),
                 launches=launches), launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 37: CREAM-Shard's banks and the training host mesh across ranks
+# ---------------------------------------------------------------------------
+
+MESH_MAX_RANKS = 4         # the ranks of the mesh phase: cards, at most 4
+MESH_TIMEOUT_S = 300       # torch.distributed.run's limit, serving only
+MESH_TRAIN_TIMEOUT_S = 780  # ... and serving, then training
+MESH_TRAIN_RANKS = 4       # the mesh phase trains with this many ranks
+MESH_TRAIN_ARGS = ["--arch", "qwen3-0.6b"]     # the launcher's defaults
+MESH_LOSS_REL = 2e-2       # data-parallel losses against the one-card run
+MESH_AR_REPS = 10          # timed all-reduces of a step's buffer
+MESH_PROFILE_STEPS = 3     # train steps timed, then profiled, after the run
+
+
+def mesh_serve(torch, np, S: int, mesh) -> dict:
+    """serve-shard's requests and geometry (NUM_ROWS global rows,
+    InterWrap, boundary SHARD_BOUNDARY) on a pool of ``S`` banks: on this
+    card (``mesh`` None) or one bank a rank of a banks ``mesh``, where
+    every rank runs this with the same arguments. With S > 1 three
+    MIG_PAGES migrations across banks, each beside one step (serve-shard's
+    plan and contents), read back intact. Returns the engine, tokens,
+    each step's host seconds, the migration steps and the launches."""
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core.layouts import Layout
+    from repro_torch.kernels import common
+    from repro_torch.serve import Engine
+    from repro_torch.vm import VirtualMemory
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    vm = VirtualMemory(row_words=W, device=DEVICE)
+    vm.add_pool("kv", NUM_ROWS, Layout.INTERWRAP, boundary=SHARD_BOUNDARY,
+                shards=S, mesh=mesh)
+    eng = Engine(cfg, max_batch=B, max_len=MAX_LEN, vm=vm, pool="kv",
+                 seed=SEED)
+    plan = []
+    if S > 1:
+        vm.create_tenant("mig")
+        vpns = vm.alloc("mig", 2 * MIG_PAGES, allow_host=False)
+        check(vpns is not None, "no frames for the migration")
+        phys = [vm.translate("mig", v).phys for v in vpns]
+        src = phys[:MIG_PAGES]
+        dst = phys[MIG_PAGES + 1:] + phys[MIG_PAGES:MIG_PAGES + 1]
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+        plan = [(k * MIG_AT_STEP, torch.randint(
+            -2**31, 2**31, (MIG_PAGES, 8 * W), generator=gen, device=DEVICE,
+            dtype=torch.int32)) for k in (1, 2, 3)]
+    reqs = requests(np, cfg.vocab_size)
+    for r in reqs:
+        eng.submit(r)
+    step_s, mig_steps = [], []
+    step = eng.step
+
+    def timed_step():
+        t = time.perf_counter()
+        out = step()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    eng.step = timed_step
+    torch.cuda.synchronize()
+    common.LAUNCHES.clear()                 # counts of the main path only
+    t0 = time.perf_counter()
+    while eng.sched.has_work():
+        if plan and eng.steps >= plan[0][0]:
+            _, moving = plan.pop(0)
+            mig_steps.append(eng.steps)
+            migration_step(torch, np, eng, src, dst, vpns[:MIG_PAGES],
+                           moving, False)
+        else:
+            eng.poll()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not plan, "migrations left unrun")
+    return dict(engine=eng, tokens=[r.generated for r in reqs],
+                step_s=step_s, migration_steps=mig_steps, wall_s=wall,
+                launches=dict(common.LAUNCHES))
+
+
+def step_times(step_s: list, mig_steps: list) -> dict:
+    plain = [t for i, t in enumerate(step_s) if i not in mig_steps]
+    return dict(decode_steps=len(step_s),
+                step_ms_median=statistics.median(plain) * 1e3,
+                migration_step_ms=[step_s[i] * 1e3 for i in mig_steps])
+
+
+def bank_digests(torch, storage) -> list:
+    """sha256 of each bank of a (S, R_local, 9, W) pool storage; a local
+    pool's (R, 9, W) is one bank (the layout of a 1-bank pool)."""
+    import hashlib
+    if storage.dim() == 3:
+        storage = storage[None]
+    return [hashlib.sha256(storage[s].cpu().numpy().tobytes()).hexdigest()
+            for s in range(storage.shape[0])]
+
+
+def tree_digest(tree) -> str:
+    """sha256 over every leaf's bytes, in tree order."""
+    import hashlib
+
+    from repro_torch.core.poolstore import leaf_bytes
+    from repro_torch.distributed.sharding import tree_leaves
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(leaf_bytes(leaf).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_profile(torch, tr) -> dict:
+    """MESH_PROFILE_STEPS more steps of a trainer on the host clock, then
+    as many under torch.profiler: device time a step by kernel class
+    (the NCCL kernels as "collective"; the profiler's own "nccl:*" range
+    on the device timeline, which spans the kernel, is left out) and its
+    busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    k = MESH_PROFILE_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(k)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / k
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(k)
+        torch.cuda.synchronize()
+    return dict(step_ms=host_ms,
+                **device_breakdown(prof, host_ms * k, per=k, top=6,
+                                   skip=("nccl:all_reduce",)))
+
+
+def phase_mesh(torch, np) -> tuple[dict, dict]:
+    """N = min(cards, MESH_MAX_RANKS) ranks under torch.distributed.run:
+    first, in this process, serve-shard's requests on a one-card pool of
+    N banks (and with N = MESH_TRAIN_RANKS the launcher's qwen3-0.6b
+    training on one card); then the ranks serve the same on a mesh pool
+    of N banks, one a rank, and train data-parallel, and rank 0 holds
+    them against those runs (:func:`mesh_worker`). Returns the phase's
+    line and its launches summed over the ranks."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import train as launch_train
+    n = min(torch.cuda.device_count(), MESH_MAX_RANKS)
+    out = common.BUILD_DIR / "mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob("*.json"):
+        f.unlink()
+    one = mesh_serve(torch, np, n, None)
+    ref = dict(tokens=one["tokens"],
+               banks=bank_digests(torch, one["engine"].pool.storage),
+               **step_times(one["step_s"], one["migration_steps"]))
+    del one
+    torch.cuda.empty_cache()
+    train = n == MESH_TRAIN_RANKS
+    if train:
+        t = time.perf_counter()
+        tr = launch_train.main(MESH_TRAIN_ARGS)
+        ref["train"] = dict(losses=[r["loss"] for r in tr.metrics_log],
+                            step_ms=statistics.median(
+                                r["wall_s"] for r in tr.metrics_log[1:])
+                            * 1e3, seconds=time.perf_counter() - t)
+        ref["train"]["profile"] = train_profile(torch, tr)
+        del tr
+        torch.cuda.empty_cache()
+    (out / "one_card.json").write_text(json.dumps(ref))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"),
+         "--mesh-worker", str(out)] + (["--train"] if train else []),
+        capture_output=True, text=True,
+        timeout=MESH_TRAIN_TIMEOUT_S if train else MESH_TIMEOUT_S)
+    (out / "ranks.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0,
+          f"mesh ranks failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    res = json.loads((out / "mesh.json").read_text())
+    launches: dict = {}
+    for r in res["ranks"]:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    check(launches.get("mixed_read_correct_routed_local", 0) > 0,
+          "the mesh read launched no shard-local routed read")
+    check(not launches.get("mixed_read_correct_routed"),
+          "a mesh rank launched the all-banks read")
+    return dict(ranks=n, backend=res["backend"], rows=NUM_ROWS, banks=n,
+                boundary=SHARD_BOUNDARY, tokens_equal=True, banks_equal=True,
+                one_card=ref, mesh=res, launches=launches,
+                seconds=time.perf_counter() - t), launches
+
+
+def mesh_worker(out: Path, train: bool) -> int:
+    """One rank of the mesh phase, under torch.distributed.run: an NCCL
+    group on this rank's card, serve-shard's requests on a mesh pool of
+    one bank a rank (and with ``train`` the launcher's data-parallel
+    training); rank 0 gathers the banks and the other ranks' results,
+    holds them against the one-card runs and writes ``out/mesh.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import tree_leaves
+    from repro_torch.kernels import common
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_banks_mesh, start_process_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_cpu = torch.device(DEVICE).type == "cpu"   # a rehearsal's gloo
+    start_process_group("cpu" if on_cpu else "cuda")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    backend = dist.get_backend()
+    check(backend == ("gloo" if on_cpu else "nccl"),
+          f"the group is {backend}")
+    common.library()
+    ref = json.loads((out / "one_card.json").read_text())
+    run = mesh_serve(torch, np, n, make_banks_mesh(n))
+    eng = run["engine"]
+    bank = eng.pool.storage[0]
+    banks = torch.empty((n, *bank.shape), dtype=bank.dtype,
+                        device=bank.device)
+    dist.all_gather_into_tensor(banks, bank.unsqueeze(0))
+    tokens = [None] * n
+    dist.all_gather_object(tokens, run["tokens"])
+    # the step's all-reduce alone: the mesh read's one buffer at its size
+    pages = B * eng.n_layers * eng.kv.max_blocks
+    buf = torch.zeros(pages * 8 * W, dtype=torch.int32, device=bank.device)
+    ar_ms = median_ms(lambda: dist.all_reduce(buf), MESH_AR_REPS)
+    mine = dict(rank=rank, device=str(bank.device),
+                **step_times(run["step_s"], run["migration_steps"]),
+                allreduce_pages=pages, allreduce_ms=ar_ms,
+                launches=run["launches"])
+    mine["allreduce_share"] = ar_ms / mine["step_ms_median"]
+    if rank == 0:
+        check(all(t == ref["tokens"] for t in tokens),
+              "mesh tokens differ from the one-card pool's")
+        check(bank_digests(torch, banks) == ref["banks"],
+              "mesh banks differ from the one-card pool's")
+    del banks, buf, run, eng, bank
+    torch.cuda.empty_cache()
+    if train:
+        common.LAUNCHES.clear()
+        tr = launch_train.main(MESH_TRAIN_ARGS)
+        log = list(tr.metrics_log)
+        check(tr.replicas is not None and tr.replicas.size == n,
+              "the launcher did not train data-parallel")
+        digests = [None] * n
+        dist.all_gather_object(digests, tree_digest(tr.params))
+        # the step's one buffer: the loss and every gradient in float32
+        numel = 1 + sum(p.numel() for p in tree_leaves(tr.params))
+        step_ms = statistics.median(r["wall_s"] for r in log[1:]) * 1e3
+        mine["train"] = dict(
+            losses=[r["loss"] for r in log[:len(ref["train"]["losses"])]],
+            step_ms=step_ms,
+            tokens_per_s=tr.data.cfg.global_batch * tr.data.cfg.seq_len
+            / (step_ms / 1e3),
+            launches=dict(common.LAUNCHES))
+        with uncounted():
+            mine["train"]["profile"] = train_profile(torch, tr)
+        for k, v in common.LAUNCHES.items():
+            mine["launches"][k] = mine["launches"].get(k, 0) + v
+        del tr
+        torch.cuda.empty_cache()
+        gbuf = torch.zeros(numel, dtype=torch.float32, device=DEVICE)
+        mine["train"]["allreduce_ms"] = median_ms(
+            lambda: dist.all_reduce(gbuf), MESH_AR_REPS)
+        mine["train"]["allreduce_share"] = \
+            mine["train"]["allreduce_ms"] / step_ms
+        del gbuf
+        if rank == 0:
+            check(len(set(digests)) == 1,
+                  "data-parallel replicas hold different parameters")
+            want = ref["train"]["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(mine["train"]["losses"], want))
+            mine["train"]["loss_rel_to_one_card"] = rel
+            check(len(want) == len(mine["train"]["losses"])
+                  and rel <= MESH_LOSS_REL,
+                  f"data-parallel losses {rel} from the one-card run's")
+            mine["train"]["params_equal_across_ranks"] = True
+    results = [None] * n
+    dist.all_gather_object(results, mine)
+    if rank == 0:
+        (out / "mesh.json").write_text(json.dumps(dict(
+            backend=backend, ranks=results)))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -4966,6 +5334,8 @@ def main() -> int:
     shard, l_ss = phase_serve_shard(torch, np, tok_c)
     phase("serve-shard", shard)
     torch.cuda.empty_cache()
+    mesh, l_ms = phase_mesh(torch, np)
+    phase("mesh", mesh)
 
     phase("cache-reference", phase_cache_reference(torch, np))
     zipf, l_z, pcache = phase_cache_replay(torch, np, "zipf")
@@ -5028,7 +5398,8 @@ def main() -> int:
                                      olmoe["profile"]))
     main_paths = [l_c, l_s, l_r, l_tm, l_ss, *l_z.values(), *l_w.values(),
                   l_d, l_a, l_cs, l_cd, l_rg, l_wb, l_ls, *l_sc2, l_mg,
-                  *l_ol, l_xl, l_fs, l_pl, *l_sq, l_em, l_se, l_tr, l_lm]
+                  *l_ol, l_xl, l_fs, l_pl, *l_sq, l_em, l_se, l_tr, l_lm,
+                  l_ms]
     # a PARITY pool's write is one parity8_write; the standalone encode
     # keeps the TPU kernel's contract and is on no main path
     check(not any(l.get("parity8_encode") for l in main_paths),
@@ -5058,4 +5429,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-worker" in sys.argv:      # one rank of the mesh phase
+        at = sys.argv.index("--mesh-worker")
+        sys.exit(mesh_worker(Path(sys.argv[at + 1]), "--train" in sys.argv))
     sys.exit(main())

@@ -6,7 +6,8 @@
 // `read_correct` (:90), whose scalar-prefetched BlockSpec index map did
 // the translation of repro/core/layouts.py page_coords, and
 // `read_correct_routed` (:139), which composed the shard router with that
-// translation inside one bank's program (see the second kernel below).
+// translation inside one bank's program (see the second kernel below: its
+// all-banks form on one card and its shard-local form on a banks mesh).
 //
 // Bound: memory traffic — each page's 8W words are read once and written
 // once, plus W/8 packed code words per slice of a SECDED page. There is
@@ -92,26 +93,37 @@ __global__ void mixed_read_correct_kernel(const int32_t* __restrict__ storage,
   copy_slice<kStatus>(src, code, dst, sec, W, status, i);
 }
 
-// Router-fused read of the CREAM-Shard pool: all S banks lie in one
-// contiguous (S, R_local, 9, W) tensor on the card, so one launch reads
-// any global page of any bank. The TPU ran one program per bank (a
-// `banks` mesh) and each zeroed the rows it did not own before a psum
-// assembled the batch; here the block routes the global id itself
-// (regular p -> bank p % S, local p / S; extra R + e -> bank e % S, local
-// R_local + e / S), translates the local id against the bank's geometry
-// and reads from that bank, which gives the psum's assembled batch with
-// no zero traffic. Same bound and thread layout as above, and the same
-// optional status output (the sharded pool's status read and the serving
-// step's metrics-on gather): the template keeps the status-free launch
+// Router-fused read of the CREAM-Shard pool, in two forms.
+//
+// All banks (kLocal false): all S banks lie in one contiguous
+// (S, R_local, 9, W) tensor on the card, so one launch reads any global
+// page of any bank. The TPU ran one program per bank (a `banks` mesh) and
+// each zeroed the rows it did not own before a psum assembled the batch;
+// here the block routes the global id itself (regular p -> bank p % S,
+// local p / S; extra R + e -> bank e % S, local R_local + e / S),
+// translates the local id against the bank's geometry and reads from that
+// bank, which gives the psum's assembled batch with no zero traffic.
+//
+// Shard-local (kLocal true): the TPU kernel's own contract, for a pool
+// whose banks lie on the ranks of a banks mesh, one bank a card.
+// `storage` is this rank's one (R_local, 9, W) bank and `shard_id` its
+// index; the block routes its page the same way, and a page of another
+// bank is written as zeros with status 0, so that an int32 SUM
+// all-reduce over the ranks assembles the batch exactly as the
+// reference's psum does. Owned pages are read and corrected as above.
+//
+// Same bound and thread layout as the local read, and the same optional
+// status output (the sharded pool's status read and the serving step's
+// metrics-on gather): the templates keep the status-free all-banks launch
 // the kernel it was.
-template <bool kStatus>
+template <bool kStatus, bool kLocal>
 __global__ void mixed_read_routed_kernel(const int32_t* __restrict__ storage,
                                          const int32_t* __restrict__ pages,
                                          int32_t* __restrict__ out,
                                          int32_t* __restrict__ status, int W,
                                          int interwrap, int num_rows,
                                          int num_shards, int boundary_local,
-                                         int ebase) {
+                                         int ebase, int shard_id) {
   const int i = blockIdx.x, k = blockIdx.y;
   const int page = pages[i];
   const int rows_local = num_rows / num_shards;
@@ -121,21 +133,35 @@ __global__ void mixed_read_routed_kernel(const int32_t* __restrict__ storage,
                         num_shards - 1);
   const int local = is_extra ? rows_local + e / num_shards
                              : page / num_shards;
+  uint4* dst = reinterpret_cast<uint4*>(
+      out + (static_cast<size_t>(i) * 8 + k) * W);
+  if constexpr (kLocal) {
+    if (shard != shard_id) {
+      // another rank's page: the block writes its slice as zeros and
+      // leaves the status word at the caller's 0 (the whole block takes
+      // this branch, so copy_slice's barriers are not split)
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      for (int t = threadIdx.x; t < W / 8; t += blockDim.x) {
+        dst[2 * t] = z;
+        dst[2 * t + 1] = z;
+      }
+      return;
+    }
+  }
   int row, lane;
   bool sec;
   page_slice(local, k, interwrap, rows_local, boundary_local, ebase, row,
              lane, sec);
   row = min(max(row, 0), rows_local - 1);
   lane = min(max(lane, 0), 8);
-  const int32_t* bank = storage + static_cast<size_t>(shard) * rows_local
-                                      * 9 * W;
+  const int32_t* bank =
+      kLocal ? storage
+             : storage + static_cast<size_t>(shard) * rows_local * 9 * W;
   const uint4* src = reinterpret_cast<const uint4*>(
       bank + (static_cast<size_t>(row) * 9 + lane) * W);
   const uint32_t* code = reinterpret_cast<const uint32_t*>(
       bank + (static_cast<size_t>(min(max(local, 0), rows_local - 1)) * 9
               + 8) * W) + k * (W / 8);
-  uint4* dst = reinterpret_cast<uint4*>(
-      out + (static_cast<size_t>(i) * 8 + k) * W);
   copy_slice<kStatus>(src, code, dst, sec, W, status, i);
 }
 
@@ -155,13 +181,38 @@ extern "C" int mixed_read_correct_routed(const void* storage,
   auto* o = static_cast<int32_t*>(out);
   auto* stat = static_cast<int32_t*>(status);
   if (stat)
-    mixed_read_routed_kernel<true><<<grid, slice_threads(W), 0, s>>>(
+    mixed_read_routed_kernel<true, false><<<grid, slice_threads(W), 0, s>>>(
         st, pg, o, stat, W, interwrap, num_rows, num_shards, boundary_local,
-        ebase);
+        ebase, 0);
   else
-    mixed_read_routed_kernel<false><<<grid, slice_threads(W), 0, s>>>(
+    mixed_read_routed_kernel<false, false><<<grid, slice_threads(W), 0, s>>>(
         st, pg, o, nullptr, W, interwrap, num_rows, num_shards,
-        boundary_local, ebase);
+        boundary_local, ebase, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shard-local form: `bank` is this rank's (R_local, 9, W) bank,
+// `shard_id` its index in the banks mesh; `out` (n, 8W) gets zeros for
+// the pages of other banks. `status` may be null; else n zeroed int32
+// words, left 0 for those pages.
+extern "C" int mixed_read_correct_routed_local(
+    const void* bank, const void* pages, void* out, void* status, int n,
+    int W, int interwrap, int num_rows, int num_shards, int boundary_local,
+    int ebase, int shard_id, void* stream) {
+  const dim3 grid(n, 8);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* st = static_cast<const int32_t*>(bank);
+  const auto* pg = static_cast<const int32_t*>(pages);
+  auto* o = static_cast<int32_t*>(out);
+  auto* stat = static_cast<int32_t*>(status);
+  if (stat)
+    mixed_read_routed_kernel<true, true><<<grid, slice_threads(W), 0, s>>>(
+        st, pg, o, stat, W, interwrap, num_rows, num_shards, boundary_local,
+        ebase, shard_id);
+  else
+    mixed_read_routed_kernel<false, true><<<grid, slice_threads(W), 0, s>>>(
+        st, pg, o, nullptr, W, interwrap, num_rows, num_shards,
+        boundary_local, ebase, shard_id);
   return static_cast<int>(cudaGetLastError());
 }
 

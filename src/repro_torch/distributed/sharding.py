@@ -78,6 +78,34 @@ def active_mesh() -> Mesh | None:
     return getattr(_state, "mesh", None)
 
 
+@dataclass(frozen=True)
+class Replicas:
+    """Data parallelism over a host mesh: every parameter replicated on
+    the ``size`` ranks of ``group``, each taking its share of the batch;
+    ``rank`` is this process's index among them."""
+    group: object
+    rank: int
+    size: int
+
+
+def data_replicas() -> Replicas | None:
+    """The data-parallel replicas of the active mesh when its only axis
+    of more than one rank is ``data``, as
+    :func:`repro_torch.launch.mesh.make_host_mesh`'s ``(n, 1)``. None
+    without a mesh, on one rank, or when another axis splits the work
+    (then DTensor plans the step, as in the dry-run)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return None
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    if sizes.get("data", 1) <= 1 or any(
+            n > 1 for a, n in sizes.items() if a != "data"):
+        return None
+    dm = mesh.device_mesh
+    return Replicas(dm.get_group("data"), dm.get_local_rank("data"),
+                    sizes["data"])
+
+
 @contextlib.contextmanager
 def use_mesh(mesh: Mesh):
     """Activate a mesh for sharding constraints."""

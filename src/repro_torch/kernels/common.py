@@ -147,6 +147,10 @@ ENTRIES = {
     # num_shards, boundary_local, ebase, stream
     "mixed_read_correct_routed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _P),
+    # bank, pages, out, status (or NULL), n, W, interwrap, num_rows,
+    # num_shards, boundary_local, ebase, shard_id, stream
+    "mixed_read_correct_routed_local": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _P),
     # storage, pages, data, codes, n, W, num_rows, stream
     "migrate_gather_encode": (_P, _P, _P, _P, _I, _I, _I, _P),
     # data, parity, n_vectors, stream

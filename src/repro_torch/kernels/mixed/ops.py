@@ -62,7 +62,8 @@ def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
 
     ``num_rows`` / ``boundary`` are the global geometry (``S * R_local``,
     ``S * b_local``). Page ids must be in range (the pool validates them
-    on the host); the kernel clamps banks and rows all the same.
+    on the host); the kernel clamps banks and rows all the same. A banks
+    mesh reads with the shard-local form, :func:`read_correct_routed_local`.
     """
     S = num_shards
     if storage.dim() != 4 or storage.shape[0] != S \
@@ -93,3 +94,69 @@ def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
                       n, W, int(layout == Layout.INTERWRAP), num_rows, S,
                       b_local, extra_base_row(layout, b_local, W))
     return (out, st) if status else out
+
+
+def read_correct_routed_local(bank: torch.Tensor, pages: torch.Tensor,
+                              layout: Layout, num_rows: int, boundary: int,
+                              num_shards: int, shard_id: int,
+                              status: bool = False,
+                              out: torch.Tensor | None = None):
+    """Shard-local router-fused read: bank ``shard_id``'s ``(R_local, 9,
+    W)`` storage, ``(n,)`` global page ids -> ``(n, 8W)`` data whose rows
+    of the pages other banks own are zero, and with ``status=True`` their
+    statuses 0 -> ``(data, status)``. The TPU kernel's contract
+    (``repro/kernels/mixed/kernel.py`` ``read_correct_routed``): an int32
+    SUM all-reduce of every bank's output over a banks mesh is the
+    assembled batch, as the reference's ``psum``.
+
+    ``out`` (optional): a contiguous int32 buffer of ``n * 8W`` words, and
+    ``n`` more with ``status``, that receives the data and then the
+    status, so that one collective reduces both; the results are views of
+    it. On the card one ``mixed_read_correct_routed_local`` launch.
+    """
+    S = num_shards
+    if bank.dim() != 3 or bank.shape[1] != LANES \
+            or S * bank.shape[0] != num_rows or bank.shape[2] % 8:
+        raise ValueError(f"expected one ({num_rows // max(S, 1)}, 9, W) "
+                         f"bank with W % 8 == 0, got {tuple(bank.shape)}")
+    if boundary % S:
+        raise ValueError(f"boundary {boundary} must split over {S} banks")
+    if not 0 <= shard_id < S:
+        raise ValueError(f"shard_id {shard_id} outside [0, {S})")
+    if pages.dim() != 1:
+        raise ValueError("pages must be a 1-D id vector")
+    W, n = bank.shape[2], pages.shape[0]
+    words = n * DATA_LANES * W
+    if out is not None and (out.dim() != 1 or out.dtype != torch.int32
+                            or out.numel() != words + n * int(status)
+                            or out.device != bank.device):
+        raise ValueError(f"out must be {words + n * int(status)} int32 "
+                         f"words on {bank.device}")
+    common.check_contiguous("mixed_read_correct_routed_local", bank, pages,
+                            *(() if out is None else (out,)))
+    if out is None:
+        out = torch.empty(words + n * int(status), dtype=torch.int32,
+                          device=bank.device)
+    data = out[:words].view(n, DATA_LANES * W)
+    st = out[words:] if status else None
+    if bank.device.type == "cpu" and pages.device.type == "cpu":
+        got = ref.read_correct_routed_local(bank, pages, layout, num_rows,
+                                            boundary, S, shard_id,
+                                            status=status)
+        if status:
+            data.copy_(got[0])
+            st.copy_(got[1])
+        else:
+            data.copy_(got)
+        return (data, st) if status else data
+    pages = pages.to(torch.int32)
+    common.check_cuda_words("mixed_read_correct_routed_local", bank, pages,
+                            out)
+    if status:
+        st.zero_()
+    if n:
+        b_local = boundary // S
+        common.launch("mixed_read_correct_routed_local", bank, pages, data,
+                      st, n, W, int(layout == Layout.INTERWRAP), num_rows, S,
+                      b_local, extra_base_row(layout, b_local, W), shard_id)
+    return (data, st) if status else data

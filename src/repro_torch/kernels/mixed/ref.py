@@ -6,7 +6,9 @@
 correction of the pages in the protected region. Parity is detection-only
 and never alters data, so the fused read's contract is data-only.
 :func:`read_correct_routed` is its sharded form: the shard router, then
-:func:`read_correct` on each bank's local geometry.
+:func:`read_correct` on each bank's local geometry;
+:func:`read_correct_routed_local` is one bank's share of it, the other
+banks' rows zero.
 """
 from __future__ import annotations
 
@@ -64,3 +66,24 @@ def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
         out = torch.where(owned[:, None], data, 0 if out is None else out)
         st = torch.where(owned, beats, 0 if st is None else st)
     return (out, st.to(torch.int32)) if status else out
+
+
+def read_correct_routed_local(bank: torch.Tensor, pages: torch.Tensor,
+                              layout: Layout, num_rows: int, boundary: int,
+                              num_shards: int, shard_id: int,
+                              status: bool = False):
+    """Bank ``shard_id``'s ``(R_local, 9, W)`` storage, ``(n,)`` global
+    page ids -> ``(n, 8W)`` data, or with ``status=True`` ``(data, status
+    (n,) int32)``: :func:`read_correct` of the bank's owned local ids on
+    its local geometry, every other bank's row and status zero (the
+    reference's ``read_correct_routed`` of one shard)."""
+    from repro_torch.shard import router      # shard/ sits above kernels/
+    shard, local = router.route(pages, num_rows, num_shards)
+    owned = shard == shard_id
+    data, beats = read_correct(bank, torch.where(owned, local, 0), layout,
+                               num_rows // num_shards,
+                               boundary // num_shards, status=True)
+    data = torch.where(owned[:, None], data, 0)
+    if not status:
+        return data
+    return data, torch.where(owned, beats, 0).to(torch.int32)

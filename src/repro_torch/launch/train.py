@@ -4,21 +4,31 @@
 Port of ``repro/launch/train.py``, with the same flags, defaults and
 printed lines, plus ``--device`` (default ``cuda``; ``--device cpu`` runs
 the plain versions of the kernels on the CPU). ``--smoke`` selects the
-reduced same-family config. ``--production-mesh`` lays the (data=16,
-model=16) mesh (with ``--multi-pod`` the (pod=2, data=16, model=16) one)
-over the process group and trains under it, as the reference does: on one
-process it raises the mesh's world-size error. A multi-rank host mesh
-(the reference's default on several devices) is not built here.
+reduced same-family config.
+
+Started by ``torch.distributed.run`` with several ranks (``python -m
+torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train
+--arch qwen3-0.6b``), each rank joins the process group (NCCL on its own
+card, gloo with ``--device cpu``), and the launcher trains under the host
+mesh ``(data=n, model=1)`` as the reference does whenever it sees several
+devices: data-parallel, each rank taking its rows of the global batch and
+the gradients averaged over the ranks; rank 0 writes the checkpoints and
+prints each line once. A rank that fails makes ``torch.distributed.run``
+exit nonzero. ``--production-mesh`` lays the (data=16, model=16) mesh
+(with ``--multi-pod`` the (pod=2, data=16, model=16) one) over the process
+group and trains under it: with fewer ranks it raises the mesh's
+world-size error.
 """
 from __future__ import annotations
 
 import argparse
-
 import contextlib
+import os
 
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.distributed.sharding import use_mesh
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     start_process_group)
 from repro_torch.train.trainer import Trainer, make_trainer
 
 
@@ -43,8 +53,25 @@ def main(argv: list[str] | None = None) -> Trainer:
                     help="device to train on (cpu runs the plain versions)")
     args = ap.parse_args(argv)
 
-    mesh = make_production_mesh(multi_pod=args.multi_pod) \
-        if args.production_mesh else None
+    import torch.distributed as dist
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    # a caller that started the group (a harness) keeps it
+    own_group = ranks > 1 and not dist.is_initialized()
+    if own_group:
+        start_process_group(args.device)
+    try:
+        return _train(args, ranks)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, ranks: int) -> Trainer:
+    if args.production_mesh:
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+    else:
+        mesh = make_host_mesh() if ranks > 1 else None
+    lead = ranks == 1 or int(os.environ["RANK"]) == 0
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -56,11 +83,12 @@ def main(argv: list[str] | None = None) -> Trainer:
         tr = make_trainer(cfg, tcfg, ckpt_dir=args.ckpt_dir,
                           seq_len=args.seq_len,
                           global_batch=args.global_batch, device=args.device)
-        if args.ckpt_dir and tr.restore():
-            print(f"resumed at step {tr.step}")
+        if args.ckpt_dir and tr.restore() and lead:
+            print(f"resumed at step {tr.step}", flush=True)
         log = tr.run(args.steps)
-    print(f"{cfg.name}: loss {log[0]['loss']:.4f} -> "
-          f"{log[-1]['loss']:.4f} over {args.steps} steps")
+    if lead:
+        print(f"{cfg.name}: loss {log[0]['loss']:.4f} -> "
+              f"{log[-1]['loss']:.4f} over {args.steps} steps", flush=True)
     return tr
 
 

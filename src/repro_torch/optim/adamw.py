@@ -7,6 +7,11 @@ float32 whatever the parameter dtype; the update runs in float32 and casts
 back to the parameter's dtype. The step counter and the learning rate stay
 on the parameters' device (no host round trip a step). The trainer can
 snapshot the moments into a SECDED CREAM pool (fault tolerance).
+
+Data parallelism (:func:`average_over_replicas`): each replica's gradients
+and loss are averaged over the replicas with one all-reduce before the
+norm, the clipping and the update, so every replica applies the same
+update to the same parameters.
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.distributed.sharding import tree_leaves, tree_map
+from repro_torch.distributed.sharding import (tree_leaves, tree_map,
+                                              tree_unflatten)
 
 
 @dataclass
@@ -75,8 +81,10 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def maybe_compress_grads(grads, mode: str):
-    """Simulate compress -> (all-reduce) -> decompress (on one card there
-    is no reduction; the round trip's rounding is the effect)."""
+    """Compress -> decompress: on one card there is no reduction and the
+    round trip's rounding is the effect; data-parallel replicas quantise
+    their own gradients so, before :func:`average_over_replicas` (the
+    values reduced are the quantised ones; the wire carries float32)."""
     if mode == "none":
         return grads
     if mode == "int8":
@@ -85,6 +93,27 @@ def maybe_compress_grads(grads, mode: str):
             return decompress_int8(q, s)
         return tree_map(roundtrip, grads)
     raise ValueError(mode)
+
+
+@torch.no_grad()
+def average_over_replicas(replicas, loss: torch.Tensor, grads
+                          ) -> tuple[torch.Tensor, Any]:
+    """The mean over data-parallel ``replicas``
+    (:class:`repro_torch.distributed.sharding.Replicas`) of each replica's
+    loss and gradients: one float32 buffer, one SUM all-reduce, one
+    division. Every replica gets the same bits back; the gradients come
+    back float32."""
+    import torch.distributed as dist
+    leaves = tree_leaves(grads)
+    flat = torch.cat([loss.detach().float().reshape(1)]
+                     + [g.float().reshape(-1) for g in leaves])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=replicas.group)
+    flat /= replicas.size
+    out, at = [], 1
+    for g in leaves:
+        out.append(flat[at:at + g.numel()].view(g.shape))
+        at += g.numel()
+    return flat[0], tree_unflatten(grads, out)
 
 
 @torch.no_grad()

@@ -16,10 +16,18 @@ A migration queued with :meth:`Engine.schedule_migration` runs in the
 next step between the gather and the scatter. On the card its launches
 go to a second CUDA stream, free to run beside the model step's (the
 reference fuses its sharded pool's ``ppermute`` ring into the attend
-program for that overlap), and the scatter waits for them; id lists go
-to the card without blocking the host (:func:`~repro_torch.kernels.
-common.upload`), so queuing the migration never waits for the gather.
-On the CPU it runs in the same place, serially.
+program for that overlap), and a CUDA event makes the scatter wait for
+them; id lists go to the card without blocking the host
+(:func:`~repro_torch.kernels.common.upload`), so queuing the migration
+never waits for the gather. On the CPU it runs in the same place,
+serially.
+
+On a pool whose banks lie on a banks mesh (``vm.add_pool(..., shards=S,
+mesh=make_banks_mesh(S))``) every rank runs the same engine on the same
+requests and decodes the same tokens: the gather is the mesh read (each
+rank's shard-local read, one all-reduce), the scatter each rank's owned
+write, and a migration the pool's ring of ``S - 1`` send/receive steps,
+on the side stream beside the step.
 
 Shapes are fixed by ``(max_batch, n_layers, max_blocks)``: unbound slots
 read and write a scratch page and are masked by ``cache_len = 0``.

@@ -6,17 +6,44 @@ DIMM into independently addressable subsets (Figs. 9–11). A
 :class:`ShardedPool` stripes the global page-id space round-robin over
 ``S`` banks (:mod:`repro_torch.shard.router`); every bank is an
 identically-shaped CREAM mini-pool ``(R_local, 9, W)`` with its own
-boundary register, all moved in lockstep.
+boundary register, all moved in lockstep. The banks live in one of two
+places:
 
-The reference places the banks on ``S`` devices of a ``banks`` mesh. Here
-all ``S`` banks live in one contiguous ``(S, R_local, 9, W)`` int32 tensor
-on one card — rank subsets of one DIMM — and ``storage[s]`` is bank ``s``
-as a contiguous view, so every local verb and kernel of
-:mod:`repro_torch.core.pool` runs on it unchanged and in place.
+**On a banks mesh** (``make_sharded_pool(..., mesh=make_banks_mesh(S))``),
+as the reference places them: rank ``s`` of an ``S``-rank process group
+(NCCL on the cards, gloo on the CPU) holds bank ``s`` as its local
+``storage`` of shape ``(1, R_local, 9, W)``, and every rank calls every
+verb with the same arguments, in the same order:
+
+  * :meth:`ShardedPool.read`, with ``status=True`` too: every rank routes
+    the ids on the host, reads the pages it owns with one launch of the
+    shard-local router-fused read (other banks' rows and statuses zero),
+    and one int32 SUM all-reduce assembles the batch on every rank, as the
+    reference's ``psum``. A DAEC tier, or a PARITY status read, reads its
+    owned ids through the local engine, masked, then the same all-reduce.
+  * :meth:`ShardedPool.write` masks by ownership and needs no collective;
+    ``read_writeback`` persists each rank's owned corrections.
+  * :func:`read_streams` / :func:`write_streams`: rank ``s`` serves stream
+    ``s``, and the read returns its ``(1, n, page_words)`` block of the
+    banks-sharded ``(S, n, page_words)`` result.
+  * :func:`migrate_pages` is the reference's ring: each rank reads its
+    owned sources (the other rows zero), then ``S - 1`` steps pass the
+    batch to rank ``s + 1`` (``batch_isend_irecv``), each rank landing the
+    pages addressed to it at every step.
+  * :func:`repartition` and :func:`set_daec_rows` run on the local bank,
+    in lockstep on every rank; :func:`scrub` sweeps the local bank, sums
+    the censuses with one all-reduce and all-gathers the corrupt rows as
+    global rows (``local * S + bank``).
+
+**On one card** (``mesh=None``): all ``S`` banks live in one contiguous
+``(S, R_local, 9, W)`` int32 tensor — rank subsets of one DIMM — and
+``storage[s]`` is bank ``s`` as a contiguous view, so every local verb and
+kernel of :mod:`repro_torch.core.pool` runs on it unchanged and in place.
 
   * :meth:`ShardedPool.read` of page ids is one launch of the router-fused
-    mixed read (:func:`repro_torch.kernels.mixed.ops.read_correct_routed`),
-    with ``status=True`` too, whose status comes out of the same launch.
+    mixed read over all banks
+    (:func:`repro_torch.kernels.mixed.ops.read_correct_routed`), with
+    ``status=True`` too, whose status comes out of the same launch.
     Every read of a pool with a SEC-DAEC tier (the fused read corrects
     with SECDED only), and the status reads of a PARITY pool (whose status
     is the parity check, which the fused read does not run), go through
@@ -26,34 +53,38 @@ as a contiguous view, so every local verb and kernel of
   * :meth:`ShardedPool.write` lands the last valid row of each page
     (:func:`repro_torch.core.pool._landing_rows` on the global batch),
     routes, and writes each bank's pages in place.
-  * :func:`migrate_pages` is the reference's ``ppermute`` ring on one
-    card: read every source page (routed), then write each into its
-    destination's bank — the ring also reads every source before it lands
-    anything, so the storage is the ring's.
+  * :func:`migrate_pages` is the ring on one card: read every source page
+    (routed), then write each into its destination's bank — the ring also
+    reads every source before it lands anything, so the storage is the
+    ring's.
   * :func:`repartition` and :func:`set_daec_rows` move every bank's
     boundary or DAEC tier in lockstep; :func:`scrub` sweeps bank by bank
     and reports corrupt rows as global rows (``local * S + bank``).
 
-Writes and migrations update the storage in place (the reference donates
-it); :func:`repartition`, :func:`set_daec_rows`, :func:`scrub` and
+Either way, of duplicate ids in a write the last valid row lands. Writes
+and migrations update the storage in place (the reference donates it);
+:func:`repartition`, :func:`set_daec_rows`, :func:`scrub` and
 ``migrate(donate=False)`` and ``read_writeback`` work on copies and
 leave the input valid.
 
-Telemetry keeps the reference's names where the mechanism differs: each
-routed read / write counts one ``cream_shard_dispatch_total`` under its op
-and runs in a ``shard.fused.dispatch`` span; a migration counts its pages
-in ``cream_shard_ring_pages_total`` under a ``shard.migrate.ring`` span
-(a gather and scatter on one card, not a ``ppermute`` ring);
-CREAM-Lens gets one record per bank of each dispatch, against the bank's
-own geometry, on stream ``bank<s>``.
+Telemetry keeps the reference's names: each routed read / write counts
+one ``cream_shard_dispatch_total`` under its op and runs in a
+``shard.fused.dispatch`` span; a migration counts its pages in
+``cream_shard_ring_pages_total`` under a ``shard.migrate.ring`` span (on
+one card a gather and a scatter); CREAM-Lens gets one record per bank of
+each dispatch, against the bank's own geometry, on stream ``bank<s>`` —
+on a mesh each rank records its own bank, and the union over the ranks
+is the one-card pool's records.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import pool as pool_lib
 from repro_torch.core.layouts import (GROUP_ROWS, LANES, Layout,
@@ -88,7 +119,7 @@ def _memprof_routed(pool: "ShardedPool", op: str, pages,
     ids = pool_lib._host_ids(pool, pages)
     shard, local = router.route_np(ids, pool.num_rows, pool.num_shards)
     prefix = "" if stream == "main" else f"{stream}/"
-    for s in range(pool.num_shards):
+    for s in _served(pool):
         loc = local[shard == s]
         if loc.size:
             obs_memprof.record(
@@ -99,7 +130,8 @@ def _memprof_routed(pool: "ShardedPool", op: str, pages,
 
 @dataclass
 class ShardedPool:
-    """``storage`` (S, R_local, 9, W) int32 plus the per-bank geometry.
+    """``storage`` (S, R_local, 9, W) int32 plus the per-bank geometry; on
+    a banks ``mesh`` this rank's bank alone, ``(1, R_local, 9, W)``.
 
     Page ids follow the global convention of a local pool; ``daec_rows``
     global DAEC rows are the top ``daec_rows_local`` rows of every bank.
@@ -109,6 +141,9 @@ class ShardedPool:
     layout: Layout
     row_words: int
     daec_rows_local: int = 0
+    #: the 1-D ``banks`` mesh the banks lie on, one a rank
+    #: (:func:`repro_torch.launch.mesh.make_banks_mesh`); None: one card
+    mesh: Any = None
 
     # -- geometry (global page ids, the same as PoolState's) ----------------
     @property
@@ -117,7 +152,17 @@ class ShardedPool:
 
     @property
     def num_shards(self) -> int:
+        if self.mesh is not None:
+            return self.mesh.devices.numel()
         return self.storage.shape[0]
+
+    @property
+    def bank_id(self) -> int | None:
+        """The bank this rank holds on a mesh (its rank in the mesh); None
+        on one card."""
+        if self.mesh is None:
+            return None
+        return self.mesh.device_mesh.get_local_rank()
 
     @property
     def rows_local(self) -> int:
@@ -168,7 +213,8 @@ class ShardedPool:
 
     @property
     def raw_bytes(self) -> int:
-        return self.storage.numel() * 4
+        banks = 1 if self.mesh is None else self.num_shards
+        return self.storage.numel() * 4 * banks
 
     @property
     def effective_bytes(self) -> int:
@@ -183,7 +229,14 @@ class ShardedPool:
 
     def bank(self, s: int) -> PoolState:
         """Bank ``s`` as a local pool over a view of the storage: its
-        writes land in this pool's storage."""
+        writes land in this pool's storage. On a mesh only this rank's
+        own bank is here."""
+        if self.mesh is not None:
+            if s != self.bank_id:
+                raise ValueError(f"bank {s} lies on rank {s} of the banks "
+                                 f"mesh; this rank holds bank "
+                                 f"{self.bank_id}")
+            s = 0
         return PoolState(self.storage[s], self.boundary_local, self.layout,
                          self.row_words, self.daec_rows_local)
 
@@ -292,29 +345,56 @@ class ShardedPool:
         return scrub(self)
 
 
-def _read(pool: "ShardedPool", ids: np.ndarray, status: bool = False):
+def _served(pool: "ShardedPool"):
+    """The banks this process reads and writes: every bank on one card,
+    its own on a mesh."""
+    return range(pool.num_shards) if pool.mesh is None else (pool.bank_id,)
+
+
+def _all_reduce(pool: "ShardedPool", t: torch.Tensor) -> None:
+    """In-place SUM of ``t`` over the banks mesh: each rank's share of a
+    batch, the other banks' rows zero, becomes the assembled batch."""
+    if t.numel():
+        dist.all_reduce(t, op=dist.ReduceOp.SUM,
+                        group=pool.mesh.device_mesh.get_group())
+
+
+def _read(pool: "ShardedPool", ids: np.ndarray, status: bool = False,
+          reduce: bool = True):
     """:meth:`ShardedPool.read` of validated ids, without its telemetry:
     one router-fused mixed read (with its status output for a status
     read), or for a DAEC tier, or a status read of a PARITY pool, the
-    bank-by-bank status read."""
+    bank-by-bank status read. On a mesh the read is shard-local (other
+    banks' rows zero) and, with ``reduce``, one all-reduce assembles it."""
     if pool.daec_rows_local or (status and not pool.fused_status):
-        data, st = _read_status(pool, ids)
+        data, st = _read_status(pool, ids, reduce=reduce)
         return (data, st) if status else data
-    return mixed_ops.read_correct_routed(
-        pool.storage, upload(ids, pool.device), pool.layout,
-        pool.num_rows, pool.boundary, pool.num_shards, status=status)
+    if pool.mesh is None:
+        return mixed_ops.read_correct_routed(
+            pool.storage, upload(ids, pool.device), pool.layout,
+            pool.num_rows, pool.boundary, pool.num_shards, status=status)
+    buf = torch.empty(ids.size * (pool.page_words + int(status)),
+                      dtype=torch.int32, device=pool.device)
+    got = mixed_ops.read_correct_routed_local(
+        pool.storage[0], upload(ids, pool.device), pool.layout,
+        pool.num_rows, pool.boundary, pool.num_shards, pool.bank_id,
+        status=status, out=buf)
+    if reduce:
+        _all_reduce(pool, buf)
+    return got
 
 
 def _write(pool: "ShardedPool", ids: np.ndarray, data, valid=None
            ) -> "ShardedPool":
     """:meth:`ShardedPool.write` of validated ids, without its telemetry:
-    each bank writes the last valid row of each of its pages in place."""
+    each bank writes the last valid row of each of its pages in place (on
+    a mesh, this rank's bank: no collective)."""
     if not ids.size:
         return pool
     words = pool_lib._as_words(pool, data, ids.size)
     land = pool_lib._landing_rows(ids, valid)
     shard, local = router.route_np(ids, pool.num_rows, pool.num_shards)
-    for s in range(pool.num_shards):
+    for s in _served(pool):
         sel = np.flatnonzero(land & (shard == s))
         if sel.size:
             pool_lib._write_in_place(pool.bank(s), local[sel],
@@ -324,14 +404,17 @@ def _write(pool: "ShardedPool", ids: np.ndarray, data, valid=None
 
 def make_sharded_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
                       boundary: int | None = None, *, num_shards: int,
-                      row_words: int = 64, daec_rows: int = 0,
+                      row_words: int = 64, mesh=None, daec_rows: int = 0,
                       device=None) -> ShardedPool:
     """A zeroed pool of ``num_rows`` global rows in ``num_shards`` banks,
     on ``device`` (``cuda`` unless asked otherwise).
 
     ``boundary`` (global, default: the whole pool CREAM) and ``num_rows``
     must be multiples of ``num_shards * GROUP_ROWS``; ``daec_rows`` global
-    rows, a multiple of ``num_shards``, carve the SEC-DAEC tier.
+    rows, a multiple of ``num_shards``, carve the SEC-DAEC tier. With a
+    1-D ``banks`` ``mesh`` of ``num_shards`` ranks each rank holds its own
+    bank on ``device`` (this rank's card; ``cpu`` under gloo), and every
+    rank makes the pool with the same arguments.
     """
     boundary = num_rows if boundary is None else boundary
     if layout == Layout.BASELINE_ECC:
@@ -346,30 +429,48 @@ def make_sharded_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
             f"[{boundary}, {num_rows})")
     if row_words % 8:
         raise ValueError("row_words must be a multiple of 8")
-    storage = torch.zeros((num_shards, num_rows // num_shards, LANES,
-                           row_words), dtype=torch.int32,
-                          device=resolve_device(device))
+    device = resolve_device(device)
+    banks = num_shards
+    if mesh is not None:
+        if tuple(mesh.axis_names) != ("banks",) \
+                or mesh.devices.numel() != num_shards:
+            raise ValueError(
+                f"mesh must be a 1-D 'banks' mesh of {num_shards} devices")
+        if mesh.device_mesh.device_type != device.type:
+            raise ValueError(f"a {mesh.device_mesh.device_type} mesh holds "
+                             f"no bank on {device}")
+        banks = 1
+    storage = torch.zeros((banks, num_rows // num_shards, LANES, row_words),
+                          dtype=torch.int32, device=device)
     return ShardedPool(storage, boundary // num_shards, layout, row_words,
-                       daec_rows // num_shards)
+                       daec_rows // num_shards, mesh)
 
 
 def _read_status(pool: ShardedPool, ids: np.ndarray,
-                 read=pool_lib._read_any_status
+                 read=pool_lib._read_any_status, reduce: bool = True
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bank-by-bank read with status through the local engine (DAEC and
     PARITY aware), assembled in batch order. ``read(bank, local_ids)``
     reads one bank: the status read, or the write-back read that repairs
-    the bank's view of the storage in place."""
-    n = ids.size
-    data = torch.empty((n, pool.page_words), dtype=torch.int32,
-                       device=pool.device)
-    status = torch.empty((n,), dtype=torch.int32, device=pool.device)
+    the bank's view of the storage in place. On a mesh this rank reads
+    its owned ids into zeroed rows and, with ``reduce``, one all-reduce
+    of data and status assembles the batch."""
+    n, pw = ids.size, pool.page_words
+    if pool.mesh is None:
+        data = torch.empty((n, pw), dtype=torch.int32, device=pool.device)
+        status = torch.empty((n,), dtype=torch.int32, device=pool.device)
+    else:
+        buf = torch.zeros(n * (pw + 1), dtype=torch.int32,
+                          device=pool.device)
+        data, status = buf[:n * pw].view(n, pw), buf[n * pw:]
     shard, local = router.route_np(ids, pool.num_rows, pool.num_shards)
-    for s in range(pool.num_shards):
+    for s in _served(pool):
         sel = np.flatnonzero(shard == s)
         if sel.size:
             idx = upload(sel, pool.device)
             data[idx], status[idx] = read(pool.bank(s), local[sel])
+    if pool.mesh is not None and reduce:
+        _all_reduce(pool, buf)
     return data, status
 
 
@@ -397,20 +498,23 @@ def read_streams(pool: ShardedPool, pages) -> torch.Tensor:
     """Serve ``S`` request streams, one per bank: ``pages`` is ``(S, n)``
     global ids, stream ``s`` touching bank ``s`` only (plan them with
     :func:`repro_torch.shard.router.plan_streams`). Each bank reads only
-    its own ``n`` pages. Returns ``(S, n, page_words)``."""
+    its own ``n`` pages. Returns ``(S, n, page_words)``; on a mesh, as the
+    reference's result sharded over ``banks``, this rank's block of it,
+    ``(1, n, page_words)``."""
     local = _stream_ids(pool, pages)
     _memprof_routed(pool, "gather", pages, stream="streams")
     return torch.stack([pool_lib._read_any_status(pool.bank(s), local[s])[0]
-                        for s in range(pool.num_shards)])
+                        for s in _served(pool)])
 
 
 def write_streams(pool: ShardedPool, pages, data, valid=None
                   ) -> ShardedPool:
     """Per-bank write of ``S`` aligned streams (see :func:`read_streams`):
-    ``data`` ``(S, n, page_words)``, ``valid`` optional ``(S, n)`` bool."""
+    ``data`` ``(S, n, page_words)``, ``valid`` optional ``(S, n)`` bool; on
+    a mesh each rank writes its own row ``s`` of them."""
     local = _stream_ids(pool, pages)
     _memprof_routed(pool, "scatter", pages, stream="streams")
-    for s in range(pool.num_shards):
+    for s in _served(pool):
         pool_lib._write_in_place(pool.bank(s), local[s], data[s],
                                  None if valid is None else valid[s])
     return pool
@@ -438,10 +542,54 @@ def migrate_pages(pool: ShardedPool, src_pages, dst_pages,
         ).inc(int(src.shape[0]))
     with obs_tracing.span("shard.migrate.ring", pages=int(src.shape[0]),
                           shards=pool.num_shards):
+        if pool.mesh is not None:
+            return _migrate_ring(pool, src, dst, donate)
         data = _read(pool, src)
         target = pool if donate else dataclasses.replace(
             pool, storage=pool.storage.clone())
         return _write(target, dst, data)
+
+
+def _migrate_ring(pool: ShardedPool, src: np.ndarray, dst: np.ndarray,
+                  donate: bool) -> ShardedPool:
+    """The reference's ``ppermute`` ring on a banks mesh: this rank reads
+    the sources it owns (the other rows zero), then at step ``k`` of
+    ``S`` (each step after the first passes the batch to rank ``s + 1``
+    and takes rank ``s - 1``'s) it lands the pages that left bank
+    ``s - k`` for its own bank. Of duplicate destinations the last lands,
+    as in a write."""
+    S, me = pool.num_shards, pool.bank_id
+    if not src.size:
+        return pool
+    buf = _read(pool, src, reduce=False)
+    target = pool if donate else dataclasses.replace(
+        pool, storage=pool.storage.clone())
+    src_sh = router.route_np(src, pool.num_rows, S)[0]
+    dst_sh, dst_lo = router.route_np(dst, pool.num_rows, S)
+    mine = pool_lib._landing_rows(dst, None) & (dst_sh == me)
+    for step in range(S):
+        if step:
+            buf = _ring_shift(pool, buf)
+        sel = np.flatnonzero(mine & (src_sh == (me - step) % S))
+        if sel.size:
+            pool_lib._write_in_place(target.bank(me), dst_lo[sel],
+                                     buf[upload(sel, pool.device)])
+    return target
+
+
+def _ring_shift(pool: ShardedPool, buf: torch.Tensor) -> torch.Tensor:
+    """One ``ppermute`` step of the ring: ``buf`` to rank ``s + 1``, and
+    rank ``s - 1``'s batch back."""
+    S, me = pool.num_shards, pool.bank_id
+    group = pool.mesh.device_mesh.get_group()
+    recv = torch.empty_like(buf)
+    ops = [dist.P2POp(dist.isend, buf,
+                      dist.get_global_rank(group, (me + 1) % S), group),
+           dist.P2POp(dist.irecv, recv,
+                      dist.get_global_rank(group, (me - 1) % S), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv
 
 
 def evicted_extra_pages(pool: ShardedPool, new_boundary: int) -> list[int]:
@@ -473,7 +621,7 @@ def repartition(pool: ShardedPool, new_boundary: int
                           new_boundary=new_boundary,
                           shards=pool.num_shards), obs_memprof.suspended():
         banks = [pool_lib.repartition(pool.bank(s), nb_local)[0].storage
-                 for s in range(pool.num_shards)]
+                 for s in _served(pool)]
     return dataclasses.replace(pool, storage=torch.stack(banks),
                                boundary_local=nb_local), info
 
@@ -495,7 +643,7 @@ def set_daec_rows(pool: ShardedPool, daec_rows: int) -> ShardedPool:
     with obs_tracing.span("shard.set_daec_rows", old=pool.daec_rows,
                           new=daec_rows, shards=S):
         banks = [pool_lib.set_daec_rows(pool.bank(s), n_local).storage
-                 for s in range(S)]
+                 for s in _served(pool)]
     return dataclasses.replace(pool, storage=torch.stack(banks),
                                daec_rows_local=n_local)
 
@@ -503,12 +651,14 @@ def set_daec_rows(pool: ShardedPool, daec_rows: int) -> ShardedPool:
 def scrub(pool: ShardedPool):
     """Sweep every bank -> ``(new_pool, ScrubStats)``: the censuses
     summed, corrupt rows mapped back to global rows (``local * S + bank``)
-    and sorted. Works on a copy."""
+    and sorted. Works on a copy. On a mesh each rank sweeps its bank, one
+    all-reduce sums the censuses and an all-gather collects the corrupt
+    rows, so every rank gets the whole pool's stats."""
     from repro_torch.core.scrubber import ScrubStats
     from repro_torch.core.scrubber import scrub as _scrub
     S = pool.num_shards
     banks, merged, corrupt = [], {}, []
-    for s in range(S):
+    for s in _served(pool):
         new_bank, stats = _scrub(pool.bank(s))
         banks.append(new_bank.storage)
         for f in dataclasses.fields(ScrubStats):
@@ -516,5 +666,14 @@ def scrub(pool: ShardedPool):
                 merged[f.name] = merged.get(f.name, 0) + getattr(stats,
                                                                  f.name)
         corrupt.extend(r * S + s for r in stats.corrupt_rows)
+    if pool.mesh is not None:
+        census = torch.tensor(list(merged.values()), dtype=torch.int64,
+                              device=pool.device)
+        _all_reduce(pool, census)
+        merged = dict(zip(merged, census.tolist()))
+        parts = [None] * S
+        dist.all_gather_object(parts, corrupt,
+                               group=pool.mesh.device_mesh.get_group())
+        corrupt = [r for part in parts for r in part]
     return (dataclasses.replace(pool, storage=torch.stack(banks)),
             ScrubStats(corrupt_rows=tuple(sorted(corrupt)), **merged))

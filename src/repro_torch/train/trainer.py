@@ -20,6 +20,13 @@ from ``seed`` on ``device``; the trainer's own tensors, not a serving
 model's), ``opt_state`` an :class:`~repro_torch.optim.adamw.AdamWState`
 over the same tree. Everything runs on ``device`` (``cuda`` unless asked
 otherwise).
+
+Across ranks (``replicas``: a host mesh's data-parallel replicas,
+:func:`repro_torch.distributed.sharding.data_replicas`): the parameters
+start as rank 0's (one broadcast), every rank takes its rows of each
+global batch and applies the same averaged update; each rank keeps and
+scrubs its own moment pool and runs :meth:`Trainer.warm_restore` on it;
+rank 0 writes the checkpoints, and every rank restores after a barrier.
 """
 from __future__ import annotations
 
@@ -38,7 +45,8 @@ from repro_torch.core.monitor import ErrorMonitor
 from repro_torch.core.pool import make_pool
 from repro_torch.core.scrubber import scrub
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
-from repro_torch.distributed.sharding import tree_map
+from repro_torch.distributed.sharding import (data_replicas, tree_leaves,
+                                              tree_map)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import build_model, params_tree
 from repro_torch.optim import adamw
@@ -62,6 +70,8 @@ class Trainer:
     moment_pool: Any = None
     moment_toc: Any = None
     monitor: ErrorMonitor = field(default_factory=ErrorMonitor)
+    #: data-parallel replicas (None: one process)
+    replicas: Any = None
 
     def initialize(self, seed: int | None = None) -> None:
         """Weights drawn from ``seed`` (default ``tcfg.seed``) on the
@@ -79,10 +89,17 @@ class Trainer:
             lambda a: poolstore.as_tensor(a, self.device), tree))
 
     def _start(self, params) -> None:
+        if self.replicas:
+            # every replica starts from rank 0's parameters
+            import torch.distributed as dist
+            src = dist.get_global_rank(self.replicas.group, 0)
+            for p in tree_leaves(params):
+                dist.broadcast(p, src, group=self.replicas.group)
         self.params = params
         self.opt_state = adamw.init(self.params)
         self.step = 0
-        self._step_fn = make_train_step(self.cfg, self.tcfg, self.attn_impl)
+        self._step_fn = make_train_step(self.cfg, self.tcfg, self.attn_impl,
+                                        replicas=self.replicas)
         if self.tcfg.protect_opt_state:
             self._init_moment_pool()
 
@@ -129,13 +146,22 @@ class Trainer:
                 "meta": {"step": torch.tensor(self.step, dtype=torch.int64,
                                               device=self.device)}}
 
+    def _barrier(self) -> None:
+        if self.replicas:
+            import torch.distributed as dist
+            dist.barrier(group=self.replicas.group)
+
     def save(self) -> None:
+        """Checkpoint the state (rank 0 writes it; every rank waits)."""
         if self.checkpointer:
-            self.checkpointer.save(self.step, self._ckpt_tree())
+            if not self.replicas or self.replicas.rank == 0:
+                self.checkpointer.save(self.step, self._ckpt_tree())
+            self._barrier()
 
     def restore(self, step: int | None = None) -> bool:
         if not self.checkpointer:
             return False
+        self._barrier()           # rank 0's last save has landed
         step = step if step is not None else self.checkpointer.latest_step()
         if step is None:
             return False
@@ -181,11 +207,16 @@ def make_trainer(cfg: ModelConfig, tcfg: TrainConfig,
                  num_shards: int = 1, shard_id: int = 0,
                  seq_len: int = 128, global_batch: int = 8,
                  device=None) -> Trainer:
+    """A trainer from ``seed``; under a host mesh of several ranks
+    (:func:`~repro_torch.distributed.sharding.use_mesh`) data-parallel,
+    each rank taking its rows of the ``global_batch``."""
     device = resolve_device(device)
+    reps = data_replicas()
     data = SyntheticStream(
         DataConfig(cfg.vocab_size, seq_len, global_batch, seed=seed),
-        num_shards=num_shards, shard_id=shard_id, device=device)
+        num_shards=num_shards, shard_id=shard_id, device=device,
+        replica=reps.rank if reps else 0, replicas=reps.size if reps else 1)
     ckpt = Checkpointer(ckpt_dir, device=device) if ckpt_dir else None
-    tr = Trainer(cfg, tcfg, data, ckpt, device=device)
+    tr = Trainer(cfg, tcfg, data, ckpt, device=device, replicas=reps)
     tr.initialize(seed)
     return tr

@@ -3,8 +3,8 @@
 Port of ``repro/vm/address_space.py``. A pool is a local
 :class:`~repro_torch.core.pool.PoolState` or, with ``add_pool(...,
 shards=S)``, a CREAM-Shard :class:`~repro_torch.shard.pool.ShardedPool`
-of ``S`` rank-subset banks; everything above the pool sees the same
-global page ids either way.
+of ``S`` rank-subset banks (with ``mesh=``, one a rank of a banks mesh);
+everything above the pool sees the same global page ids either way.
 
   * **frame** — one physical pool page ``(pool_name, phys)`` (regular pages
     ``[0, R)``, extra pages ``[R, R + extra)``);
@@ -193,18 +193,21 @@ class VirtualMemory:
     def add_pool(self, name: str, num_rows: int,
                  layout: Layout = Layout.INTERWRAP,
                  boundary: int | None = None, shards: int = 1,
-                 daec_rows: int = 0):
+                 mesh=None, daec_rows: int = 0):
         """Create a pool under VM management: a local pool, or with
-        ``shards > 1`` a :class:`~repro_torch.shard.pool.ShardedPool` of
-        that many banks (CREAM-Shard). ``daec_rows`` carves that many top
-        rows of the protected region into the SEC-DAEC tier."""
+        ``shards > 1`` or a ``mesh`` a
+        :class:`~repro_torch.shard.pool.ShardedPool` of that many banks
+        (CREAM-Shard), all on this VM's device or, over a 1-D ``banks``
+        ``mesh`` of ``shards`` ranks, one a rank (every rank runs the same
+        VM). ``daec_rows`` carves that many top rows of the protected
+        region into the SEC-DAEC tier."""
         if name in self.pools:
             raise ValueError(f"pool {name!r} exists")
-        if shards > 1:
+        if shards > 1 or mesh is not None:
             from repro_torch.shard.pool import make_sharded_pool
             state = make_sharded_pool(num_rows, layout, boundary,
                                       num_shards=shards,
-                                      row_words=self.row_words,
+                                      row_words=self.row_words, mesh=mesh,
                                       daec_rows=daec_rows,
                                       device=self.device)
         else:
