@@ -8,9 +8,10 @@ Usage (from the repository root, on a machine with one NVIDIA GPU)::
 Builds the kernels and turns TF32 off as ``chip_smoke.main`` does, then
 runs each named phase and prints its JSON line, and last the card's name
 and power limit. Phases: ``serve-olmoe``, ``olmoe-reference``,
-``decode-xlstm``, ``families-smoke``, ``steps``: the serve requests
-on qwen3-0.6b and on starcoder2-7b in cream mode, each with a full-batch
-decode profile over 32 steps (host-clock step, device time, launches),
+``decode-xlstm``, ``families-smoke``, ``surface``, ``steps``: the serve
+requests on qwen3-0.6b and on starcoder2-7b in cream mode, each with a
+full-batch decode profile over 32 steps (host-clock step, device time,
+launches),
 ``roofline``: the serve requests on qwen3-0.6b and on olmoe-1b-7b in
 cream mode, each with a counted full-batch decode profile, then
 ``chip_smoke.py``'s roofline phase on them, and ``mesh``: CREAM-Shard's

@@ -294,6 +294,20 @@ exits nonzero:
                   parameters bit-identical across the ranks, each rank's
                   step time, tokens/s and gradient all-reduce.
 
+ 38. surface      (run after phase 31) the names that complete the
+                  reference's surface: read_pool and lookup_pool on the
+                  serve pool's geometry, repro_torch.shard's write_any /
+                  read_any / read_any_status / read_any_writeback on
+                  serve-shard's (and with a DAEC tier), bit-exact against
+                  their plain versions on CPU copies and the pools'
+                  methods; the functional init_params -> prefill -> 8 x
+                  decode_step of qwen3-0.6b (float32, 4 sequences) with
+                  the Transformer methods' tokens, both timed; the seven
+                  examples' main on the card, each printing the lines of
+                  a CPU run of the same example made in a subprocess
+                  during the phase (clock numbers and train_lm's losses
+                  masked).
+
 Phase 2 also holds parity8_write, the PARITY pool's one-pass write,
 bit-exact against its plain version and against the eager chain it
 replaced (page_coords scatter, id upload, gather, standalone encode,
@@ -335,7 +349,8 @@ Then the card's name and power limit, one JSON line listing every kernel
 with its launches on the serve, serve-shard, cache, campaign, regions,
 writeback, launch-serve, starcoder2, musicgen, olmoe, xlstm,
 families-smoke, prefill-long, seqcache, ecc-mlp, telemetry, softecc,
-train, train-lm and mesh phases (the mesh's summed over its ranks) and
+train, train-lm, mesh and surface phases (the mesh's summed over its
+ranks) and
 its phase-2 numbers,
 and, last,
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
@@ -5089,6 +5104,318 @@ def phase_train_lm(torch, np) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 38: the rest of the reference's surface
+# ---------------------------------------------------------------------------
+
+SURFACE_BATCH = 4          # sequences of the functional decode
+SURFACE_PROMPT = 32
+SURFACE_DECODE = 8         # decode steps of the functional decode
+SURFACE_KEYS = 512         # keys of lookup_pool's index
+SURFACE_DAEC = 4 * 8       # global DAEC-tier rows of the second shard pool
+EXAMPLES = ("quickstart", "vm_multitenant", "adaptive_reliability",
+            "objcache_memcached", "serve_kv_cream", "observe_serving",
+            "train_lm")
+EXAMPLE_TIMEOUT_S = 600
+#: the clock's numbers in what the examples print (tests/torch_examples.py
+#: masks the same), and train_lm's loss values (each run's own weights)
+EXAMPLE_CLOCK = [(r"tokens/s=\s*[0-9.]+", "tokens/s=<clock>"),
+                 (r"p99=\s*[0-9.]+ms", "p99=<clock>ms"),
+                 (r"\| \d+ tok/s \|", "| <clock> tok/s |")]
+EXAMPLE_LOSS = re.compile(r"^loss (\S+) -> (\S+) \|")
+
+
+def example_args(name: str) -> list:
+    """An example's flags: train_lm takes 2 steps into an empty directory
+    (no checkpoint is written before step 20), the others none."""
+    if name != "train_lm":
+        return []
+    return ["--steps", "2", "--ckpt", str(common_build() / "surface_lm")]
+
+
+def masked_lines(text: str) -> list:
+    import math
+    out = []
+    for line in text.splitlines():
+        for pattern, repl in EXAMPLE_CLOCK:
+            line = re.sub(pattern, repl, line)
+        m = EXAMPLE_LOSS.match(line)
+        if m:
+            check(all(math.isfinite(float(v)) for v in m.groups()),
+                  f"non-finite loss: {line}")
+            line = EXAMPLE_LOSS.sub("loss <loss> -> <loss> |", line)
+        out.append(line)
+    return out
+
+
+def run_example(name: str) -> str:
+    """``repro_torch.examples.<name>.main`` on the card, every plane reset
+    around it -> what it printed."""
+    import importlib
+    import io
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    reset_planes()
+    try:
+        with contextlib.redirect_stdout(buf):
+            module.main(example_args(name), device=DEVICE)
+    finally:
+        reset_planes()
+    return buf.getvalue()
+
+
+def surface_pools(torch, np, device):
+    """The serve pool's geometry written with seeded pages and planted
+    single flips in two SECDED rows: a local PoolState, and the
+    serve-shard geometry as a ShardedPool with and without a DAEC tier."""
+    from repro_torch.core.layouts import Layout
+    from repro_torch.core.pool import make_pool
+    from repro_torch.kernels.common import to_words
+    from repro_torch.shard import make_sharded_pool
+    rng = np.random.default_rng(SEED + 38)
+    local = make_pool(NUM_ROWS, Layout.INTERWRAP, boundary=SHARD_BOUNDARY,
+                      row_words=W, device=device)
+    sharded = [make_sharded_pool(NUM_ROWS, Layout.INTERWRAP, SHARD_BOUNDARY,
+                                 num_shards=SHARDS, row_words=W,
+                                 daec_rows=d, device=device)
+               for d in (0, SURFACE_DAEC)]
+    out = []
+    for pool in [local, *sharded]:
+        ids = np.arange(pool.num_pages)
+        data = to_words(rng.integers(0, 2**32, (ids.size, 8 * W),
+                                     dtype=np.uint32)).to(device)
+        pool = pool.write(ids, data)
+        # a data-bit and a code-bit flip in SECDED rows and one in the last
+        # row (the DAEC tier's where there is one), each in its own bank
+        if pool is local:
+            rows = (SHARD_BOUNDARY + 4, SHARD_BOUNDARY + 9, NUM_ROWS - 1)
+            sto = [pool.storage] * 3
+        else:
+            b, r = pool.boundary_local, pool.rows_local
+            rows = (b + 4, b + 9, r - 1)
+            sto = [pool.storage[s] for s in (1, 2, 3)]
+        for st, row, (lane, bit) in zip(sto, rows, ((3, 7), (8, 12),
+                                                     (5, 10))):
+            st[row, lane, 17] ^= 1 << bit
+        out.append(pool)
+    return out
+
+
+def to_cpu(pool):
+    return dataclasses.replace(pool, storage=pool.storage.cpu())
+
+
+def phase_surface(torch, np) -> tuple[dict, dict]:
+    """The names that complete the reference's surface, on the card.
+
+    (a) ``kernels.mixed.ops.read_pool`` and ``kernels.hash.ops.lookup_pool``
+    on the serve pool's geometry (1600 rows of W = 2048, InterWrap,
+    boundary 1280, planted flips) and ``repro_torch.shard``'s
+    ``write_any`` / ``read_any`` / ``read_any_status`` /
+    ``read_any_writeback`` on serve-shard's (4 banks), also with a DAEC
+    tier: bit-exact against their plain versions on a CPU copy and against
+    the pool's methods; (b) the functional ``init_params`` -> ``prefill``
+    -> SURFACE_DECODE x ``decode_step`` of qwen3-0.6b (full width and
+    depth, float32, SURFACE_BATCH sequences) beside the Transformer's
+    methods on the same weights: equal tokens, each loop timed; (c) the
+    seven examples' ``main(device="cuda")``, each printing the lines of
+    the same example's CPU run, made in a subprocess started at the
+    phase's start (clock numbers and train_lm's losses masked)."""
+    import os
+    import shutil
+
+    from repro_torch import shard
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.kernels import common
+    from repro_torch.kernels.hash import ops as hash_ops
+    from repro_torch.kernels.mixed import ops as mixed_ops
+    from repro_torch.models import build_model, transformer
+    from repro_torch.objcache import hash_index as hix
+    t0 = time.perf_counter()
+    shutil.rmtree(common_build() / "surface_lm", ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one thread each for the six small examples, so that train_lm's CPU
+    # run, the phase's longest part, has the host's cores
+    cpu = {name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", "--device",
+         "cpu", *example_args(name)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=env if name == "train_lm" else dict(env, OMP_NUM_THREADS="1"))
+        for name in EXAMPLES}
+    try:
+        torch.cuda.synchronize()
+        common.LAUNCHES.clear()             # counts of the main path only
+        # (a) the pool-level names
+        local, sharded, daec = surface_pools(torch, np, DEVICE)
+        pages = torch.randperm(local.num_pages, device=DEVICE)
+        got = mixed_ops.read_pool(local, pages)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 38)
+        keys = torch.randperm(1 << 20, generator=gen,
+                              device=DEVICE)[:SURFACE_KEYS].to(torch.int32)
+        kpages = torch.randint(0, local.num_pages, (SURFACE_KEYS,),
+                               generator=gen, device=DEVICE,
+                               dtype=torch.int32)
+        index, _, ok = hix.insert(
+            hix.make_index(4 * SURFACE_KEYS, CACHE_PROBE, device=DEVICE),
+            keys, kpages, torch.zeros_like(kpages),
+            torch.full_like(kpages, 8 * W))
+        queries = torch.cat([keys, keys[:7] + (1 << 21)])
+        looked = hash_ops.lookup_pool(local, index, queries)
+        ids = np.random.default_rng(SEED).permutation(sharded.num_pages)
+        fns = {}
+        for tag, pool in (("shard", sharded), ("shard_daec", daec)):
+            wids = ids[:min(256, ids.size)]
+            data = common.to_words(np.random.default_rng(SEED + 1).integers(
+                0, 2**32, (wids.size, 8 * W), dtype=np.uint32)).to(DEVICE)
+            new = shard.write_any(pool, wids, data)
+            fns[tag] = dict(
+                pool=pool, new=new, wids=wids, data=data,
+                read=shard.read_any(pool, ids),
+                status=shard.read_any_status(pool, ids),
+                writeback=shard.read_any_writeback(pool, ids))
+        torch.cuda.synchronize()
+        launches_a = dict(common.LAUNCHES)
+        # (b) the functional decode beside the methods
+        cfg = dataclasses.replace(CONFIG, dtype="float32")
+        params = transformer.init_params(cfg, seed=SEED, device=DEVICE)
+        toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (SURFACE_BATCH, SURFACE_PROMPT)),
+            device=DEVICE)
+        max_len = SURFACE_PROMPT + SURFACE_DECODE
+
+        def functional():
+            logits, state = transformer.prefill(params, cfg, toks, max_len)
+            tok, seq = logits[:, -1].argmax(-1), []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(SURFACE_DECODE):
+                seq.append(tok)
+                logits, state = transformer.decode_step(params, cfg, state,
+                                                        tok)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            return torch.stack(seq, 1), time.perf_counter() - t
+
+        with torch.no_grad():
+            f_tok, f_s = functional()
+        del params
+        model = build_model(cfg, seed=SEED, device=DEVICE)
+
+        def methods():
+            logits, state = model.prefill_state(toks, max_len)
+            tok, seq = logits[:, -1].argmax(-1), []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(SURFACE_DECODE):
+                seq.append(tok)
+                logits, state = model.decode_step(state, tok)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            return torch.stack(seq, 1), time.perf_counter() - t
+
+        m_tok, m_s = methods()
+        del model
+        torch.cuda.empty_cache()
+        check(torch.equal(f_tok, m_tok),
+              "functional decode tokens differ from the methods'")
+        # (c) the seven examples on the card
+        card = {}
+        for name in EXAMPLES:
+            t = time.perf_counter()
+            card[name] = (run_example(name), time.perf_counter() - t)
+        torch.cuda.synchronize()
+        launches = dict(common.LAUNCHES)
+        # the checks: plain versions on CPU copies, the methods on the card
+        with uncounted():
+            check(words_err(got.cpu(), mixed_ops.read_pool(
+                to_cpu(local), pages.cpu())) == 0,
+                "read_pool disagrees with its plain version")
+            check(torch.equal(got, local.read(pages)),
+                  "read_pool disagrees with the pool's read")
+            check(bool(ok.all()), "an index insert failed")
+            cpu_index = hix.HashIndex(*(t.cpu() for t in (
+                index.key, index.page, index.off, index.length)),
+                index.probe)
+            check(words_err(looked.cpu(), hash_ops.lookup_pool(
+                to_cpu(local), cpu_index, queries.cpu())) == 0,
+                "lookup_pool disagrees with its plain version")
+            check(torch.equal(looked[:SURFACE_KEYS],
+                              local.read(kpages.long())),
+                  "lookup_pool's pages are not the pool's")
+            statuses = {}
+            for tag, f in fns.items():
+                cpool = to_cpu(f["pool"])
+                cnew = shard.write_any(cpool, f["wids"], f["data"].cpu())
+                check(torch.equal(f["new"].storage.cpu(), cnew.storage),
+                      f"{tag}: write_any disagrees with the plain version")
+                twin = dataclasses.replace(
+                    f["pool"], storage=f["pool"].storage.clone())
+                check(torch.equal(f["new"].storage, twin.write(
+                    f["wids"], f["data"]).storage),
+                      f"{tag}: write_any disagrees with the pool's write")
+                del twin
+                check(torch.equal(f["read"].cpu(), shard.read_any(cpool,
+                                                                  ids)),
+                      f"{tag}: read_any disagrees with the plain version")
+                check(torch.equal(f["read"], f["pool"].read(ids)),
+                      f"{tag}: read_any disagrees with the pool's read")
+                for g, w in zip(f["status"], shard.read_any_status(cpool,
+                                                                   ids)):
+                    check(torch.equal(g.cpu(), w),
+                          f"{tag}: read_any_status disagrees")
+                for g, w in zip(f["status"], f["pool"].read(ids,
+                                                            status=True)):
+                    check(torch.equal(g, w), f"{tag}: read_any_status "
+                          "disagrees with the pool's status read")
+                wd, ws, wp = f["writeback"]
+                cd, cs, cp = shard.read_any_writeback(cpool, ids)
+                check(torch.equal(wd.cpu(), cd) and torch.equal(ws.cpu(), cs)
+                      and torch.equal(wp.storage.cpu(), cp.storage),
+                      f"{tag}: read_any_writeback disagrees")
+                md, ms, mp = f["pool"].read_writeback(ids)
+                check(torch.equal(wd, md) and torch.equal(ws, ms)
+                      and torch.equal(wp.storage, mp.storage),
+                      f"{tag}: read_any_writeback disagrees with the "
+                      "pool's read_writeback")
+                statuses[tag] = sorted(set(f["status"][1].cpu().tolist()))
+                check(statuses[tag] == [0, 1, 2],
+                      f"{tag}: statuses {statuses[tag]}")
+        del local, sharded, daec, fns
+        torch.cuda.empty_cache()
+        examples = {}
+        for name in EXAMPLES:
+            text, err = cpu[name].communicate(timeout=EXAMPLE_TIMEOUT_S)
+            check(cpu[name].returncode == 0,
+                  f"{name} on the CPU failed: {err[-2000:]}")
+            got_lines, want = masked_lines(card[name][0]), masked_lines(text)
+            diff = [(g, w) for g, w in zip(got_lines, want) if g != w]
+            check(not diff and len(got_lines) == len(want),
+                  f"{name}: the card printed other lines than the CPU: "
+                  f"{diff[:3]}")
+            examples[name] = dict(lines=len(want), card_s=card[name][1])
+    finally:
+        for proc in cpu.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(common_build() / "surface_lm", ignore_errors=True)
+    for name in ("mixed_read_correct", "hash_lookup_read",
+                 "mixed_read_correct_routed", "daec_decode",
+                 "secded_encode"):
+        check(launches_a.get(name, 0) > 0, f"surface: no {name} launch")
+    return dict(
+        seconds=time.perf_counter() - t0, launches=launches,
+        pool=dict(rows=NUM_ROWS, row_words=W, boundary=SHARD_BOUNDARY,
+                  shards=SHARDS, daec_rows=SURFACE_DAEC, keys=SURFACE_KEYS,
+                  statuses=statuses),
+        decode=dict(arch="qwen3-0.6b", dtype="float32", batch=SURFACE_BATCH,
+                    prompt=SURFACE_PROMPT, steps=SURFACE_DECODE,
+                    tokens_equal=True,
+                    functional_ms_per_step=1e3 * f_s / SURFACE_DECODE,
+                    method_ms_per_step=1e3 * m_s / SURFACE_DECODE),
+        examples=examples), launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 36: the roofline
 # ---------------------------------------------------------------------------
 
@@ -5394,12 +5721,14 @@ def main() -> int:
     phase("train", train)
     lm, l_lm = phase_train_lm(torch, np)
     phase("train-lm", lm)
+    surface, l_sf = phase_surface(torch, np)
+    phase("surface", surface)
     phase("roofline", phase_roofline(torch, np, prof_c,
                                      olmoe["profile"]))
     main_paths = [l_c, l_s, l_r, l_tm, l_ss, *l_z.values(), *l_w.values(),
                   l_d, l_a, l_cs, l_cd, l_rg, l_wb, l_ls, *l_sc2, l_mg,
                   *l_ol, l_xl, l_fs, l_pl, *l_sq, l_em, l_se, l_tr, l_lm,
-                  l_ms]
+                  l_ms, l_sf]
     # a PARITY pool's write is one parity8_write; the standalone encode
     # keeps the TPU kernel's contract and is on no main path
     check(not any(l.get("parity8_encode") for l in main_paths),

@@ -33,11 +33,27 @@ What this package holds today:
   * :mod:`repro_torch.models`  — the attention-only decoder: forward and
     loss, flash-attention prefill, dense and paged decode;
   * :mod:`repro_torch.serve`   — the CREAM-Serve continuous-batching engine
-    and the ``SequenceCache`` park/resume tier.
+    and the ``SequenceCache`` park/resume tier;
+  * :mod:`repro_torch.examples` — the reference's seven ``examples/``
+    scripts (``python -m repro_torch.examples.<name> [--device cpu]``).
+
+The reference's public surface is held name by name
+(``tests/test_torch_surface.py``): every public name, class member and
+defaulted parameter of ``src/repro/`` has its counterpart here, or a row
+of that test's table of exceptions saying why not.
+
+``use_kernel``: wherever the reference takes it (the kernel wrappers of
+``kernels/*/ops.py``, ``make_sharded_pool`` and ``ShardedPool``, the
+scrubbers, ``MigrationEngine``, ``RegionManager.scrub_all``,
+``ObjCache``, ``VMPolicy``), the port accepts it and ignores it: the
+tensor's device decides. A CUDA tensor always reaches the hand-written
+kernel (or a wrapper raises); a CPU tensor always takes the plain
+version. No value of ``use_kernel`` sends a CUDA tensor to a plain
+version.
 
 Entry points (``Engine``, ``VirtualMemory``, ``make_pool``,
-``make_sharded_pool``, ``make_index``, ``build_model``, ``SequenceCache``;
-``ObjCache`` through its VM) run on
+``make_sharded_pool``, ``make_index``, ``build_model``, ``SequenceCache``,
+the examples' ``main``; ``ObjCache`` through its VM) run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
 without ``device="cpu"`` they raise. Nothing here imports ``jax``,
 :mod:`repro` or ``benchmarks``.

@@ -26,6 +26,7 @@ LANES = 9
 DATA_LANES = 8
 CODE_LANE = 8
 DEFAULT_ROW_WORDS = 256          # uint32 words per lane per row (1KB)
+WORDS_PER_LINE = 16              # 64-byte cache line
 GROUP_ROWS = 8                   # packing / wrap-around group (paper's 8 banks)
 
 
@@ -51,6 +52,11 @@ CAPACITY_GAIN = {
 # ---------------------------------------------------------------------------
 # Capacity accounting
 # ---------------------------------------------------------------------------
+
+
+def lines_per_row(row_words: int = DEFAULT_ROW_WORDS) -> int:
+    """64-byte cache lines in a row's eight data lanes."""
+    return DATA_LANES * row_words // WORDS_PER_LINE
 
 
 def parity_table_rows(num_rows: int, extra_pages: int, row_words: int) -> int:

@@ -51,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from dataclasses import dataclass
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -242,6 +243,41 @@ class PoolState:
         memprof.record(op, _host_ids(self, pages), layout=self.layout,
                        num_rows=self.num_rows, boundary=self.boundary,
                        row_words=self.row_words, stream=stream)
+
+
+@runtime_checkable
+class PoolLike(Protocol):
+    """The pool data-plane contract the VM, object-cache and serving
+    layers program against.
+
+    Implementations: :class:`PoolState` (one bank),
+    :class:`repro_torch.shard.ShardedPool` (banks on one card or on a
+    ``banks`` mesh) and :class:`repro_torch.faults.shadow.ShadowedPool`.
+    They share the page-id convention (regular pages ``[0, num_rows)``,
+    reclaimed extras above) and the region semantics derived from
+    ``boundary`` / ``num_rows`` / ``layout``, so owners never branch on
+    the concrete type for translation, allocation or capacity accounting.
+    """
+
+    layout: Layout
+    row_words: int
+    boundary: int
+    num_rows: int
+    num_pages: int
+    num_extra_pages: int
+    page_words: int
+    boundary_step: int
+    daec_rows: int
+
+    def read(self, pages, *, status=False): ...                     # noqa: E704
+    def write(self, pages, data, *, valid=None) -> "PoolLike": ...  # noqa: E704
+    def migrate(self, src_pages, dst_pages, *,
+                donate: bool = True) -> "PoolLike": ...             # noqa: E704
+    def streams(self, pages, data=None, *, valid=None): ...         # noqa: E704
+    def evict_prediction(self, new_boundary) -> list[int]: ...      # noqa: E704
+    def move_boundary(self, new_boundary) -> tuple: ...             # noqa: E704
+    def scrub(self, use_kernel: bool = False) -> tuple: ...         # noqa: E704
+    def memprof_record(self, op, pages, stream="main") -> None: ... # noqa: E704
 
 
 def make_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
@@ -556,6 +592,31 @@ def write_pages_any(state: PoolState, pages, data,
     state.memprof_record("scatter", pages)
     copy = dataclasses.replace(state, storage=state.storage.clone())
     return _write_in_place(copy, pages, data, valid)
+
+
+# The reference's jitted entry points. The port has no compile step: these
+# are the eager batch functions, and the in-place write is the reference's
+# donation. Each validates the ids on the host and records the dispatch to
+# CREAM-Lens, as the reference's do.
+
+
+def read_pages_any_jit(state: PoolState, pages) -> torch.Tensor:
+    """:func:`read_pages_any` of host-validated ids."""
+    return read_pages_any(state, _host_ids(state, pages))
+
+
+def read_pages_any_status_jit(state: PoolState, pages
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`read_pages_any_status` of host-validated ids."""
+    return read_pages_any_status(state, _host_ids(state, pages))
+
+
+def write_pages_any_jit(state: PoolState, pages, data) -> PoolState:
+    """:func:`write_pages_any` in place (the reference donates the input
+    state's storage here): drop the input state."""
+    ids = _host_ids(state, pages)
+    state.memprof_record("scatter", ids)
+    return _write_in_place(state, ids, data)
 
 
 def read_page(state: PoolState, page: int

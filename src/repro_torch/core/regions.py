@@ -95,13 +95,13 @@ class RegionManager:
                 for name, r in self.regions.items()}
 
     # -- adaptation loop ----------------------------------------------------
-    def scrub_all(self) -> dict[str, ScrubStats]:
+    def scrub_all(self, use_kernel: bool = False) -> dict[str, ScrubStats]:
         """One sweep of every region, each census fed to the monitor. A
         sweep dispatches by the pool's device (see
         :func:`repro_torch.core.scrubber.scrub`)."""
         stats = {}
         for name, region in self.regions.items():
-            region.pool, s = scrub(region.pool)
+            region.pool, s = scrub(region.pool, use_kernel=use_kernel)
             self.monitor.record(name, s)
             stats[name] = s
         return stats

@@ -72,6 +72,13 @@ for _i, _col in enumerate(_COLUMNS):
 MASKS = [(s32(int(_MASK_LO[p])), s32(int(_MASK_HI[p])))
          for p in range(NUM_CODE_BITS)]
 
+# The reference's public tables, as int32 CPU tensors holding the same bits
+# (``.numpy().view(np.uint32)`` gives the reference's uint32 masks).
+MASK_LO = torch.from_numpy(_MASK_LO.view(np.int32).copy())
+MASK_HI = torch.from_numpy(_MASK_HI.view(np.int32).copy())
+SYNDROME_TABLE = torch.from_numpy(_SYNDROME_TABLE.copy())
+H_COLUMNS = torch.from_numpy(_COLUMNS.astype(np.int32))
+
 
 @functools.cache
 def _action_table(device: torch.device) -> torch.Tensor:

@@ -53,6 +53,14 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return ceil_div(a, b) * b
+
+
 # ---------------------------------------------------------------------------
 # int32 words
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ def _check(data: torch.Tensor) -> tuple[int, int]:
     return data.shape[0], data.shape[1]
 
 
-def encode(data: torch.Tensor) -> torch.Tensor:
+def encode(data: torch.Tensor,
+           *, use_kernel: bool | None = None) -> torch.Tensor:
     """(N, D) int32 words -> (N, D//8) packed DAEC code fields."""
     n, d = _check(data)
     common.check_contiguous("daec_encode", data)
@@ -31,7 +32,8 @@ def encode(data: torch.Tensor) -> torch.Tensor:
     return codes
 
 
-def decode(data: torch.Tensor, codes: torch.Tensor
+def decode(data: torch.Tensor, codes: torch.Tensor,
+           *, use_kernel: bool | None = None
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(N, D), (N, D//8) -> (corrected data, corrected codes, per-beat
     status (N, D//2) int32; each superbeat's status on both its beats)."""

@@ -36,7 +36,8 @@ def uses_decode(k: int, n: int) -> bool:
 
 
 def ecc_matmul(a_bits: torch.Tensor, a_codes: torch.Tensor,
-               b: torch.Tensor) -> torch.Tensor:
+               b: torch.Tensor,
+               *, use_kernel: bool | None = None) -> torch.Tensor:
     """A (M, K) bf16 as SECDED-protected words (bits (M, K//2), codes
     (M, K//16) int32) @ B (K, N) bf16 -> (M, N) float32, with single
     data-bit errors of A corrected on load. K must be a multiple of 16."""

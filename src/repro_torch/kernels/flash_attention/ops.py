@@ -18,8 +18,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True, scale: float | None = None
-              ) -> torch.Tensor:
+              causal: bool = True, scale: float | None = None,
+              *, use_kernel: bool | None = None) -> torch.Tensor:
     """q (B, Hq, S, D), k / v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
 
     ``Hq % Hkv == 0``; query head h attends with KV head ``h // (Hq/Hkv)``.

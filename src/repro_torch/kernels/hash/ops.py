@@ -5,6 +5,8 @@ kernel in ``csrc/hash.cu`` or raises. There is no fallback.
 """
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import torch
 
 from repro_torch.core.layouts import (DATA_LANES, LANES, Layout,
@@ -12,11 +14,16 @@ from repro_torch.core.layouts import (DATA_LANES, LANES, Layout,
 from repro_torch.kernels import common
 from repro_torch.kernels.hash import ref
 
+if TYPE_CHECKING:      # core/ and objcache/ import the kernels
+    from repro_torch.core.pool import PoolState
+    from repro_torch.objcache.hash_index import HashIndex
+
 
 def lookup_read(storage: torch.Tensor, slot_keys: torch.Tensor,
                 slot_pages: torch.Tensor, queries: torch.Tensor,
                 layout: Layout, num_rows: int, boundary: int,
-                probe: int) -> torch.Tensor:
+                probe: int,
+                *, use_kernel: bool | None = None) -> torch.Tensor:
     """(R, 9, W) pool, (C,) slot keys and pages, (n,) int32 key bits ->
     (n, 8W) page data of each key's slot (page 0 for an absent key),
     SECDED pages corrected."""
@@ -46,3 +53,13 @@ def lookup_read(storage: torch.Tensor, slot_keys: torch.Tensor,
                       int(layout == Layout.INTERWRAP), num_rows, boundary,
                       extra_base_row(layout, boundary, W))
     return out
+
+
+def lookup_pool(state: PoolState, index: HashIndex,
+                queries: torch.Tensor, *,
+                use_kernel: bool | None = None) -> torch.Tensor:
+    """:func:`lookup_read` of a :class:`~repro_torch.core.pool.PoolState`
+    and a :class:`~repro_torch.objcache.hash_index.HashIndex`."""
+    return lookup_read(state.storage, index.key, index.page, queries,
+                       state.layout, state.num_rows, state.boundary,
+                       index.probe)

@@ -23,7 +23,8 @@ def _check(name: str, storage: torch.Tensor, pages: torch.Tensor,
 
 
 def gather(storage: torch.Tensor, pages: torch.Tensor,
-           num_rows: int) -> torch.Tensor:
+           num_rows: int,
+           *, use_kernel: bool | None = None) -> torch.Tensor:
     """(R, 9, W) pool, (n,) page ids -> (n, 8W) page data.
 
     Page ids must lie in ``[0, R + R/8)`` (the pool validates them on the
@@ -44,7 +45,8 @@ def gather(storage: torch.Tensor, pages: torch.Tensor,
 
 
 def scatter(storage: torch.Tensor, pages: torch.Tensor, data: torch.Tensor,
-            num_rows: int) -> torch.Tensor:
+            num_rows: int,
+            *, use_kernel: bool | None = None) -> torch.Tensor:
     """Write (n, 8W) pages into the (R, 9, W) pool in place; returns it.
 
     Contract: the ids in ``pages`` are distinct. Two slices landing on one

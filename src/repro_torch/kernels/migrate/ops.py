@@ -12,7 +12,8 @@ from repro_torch.kernels import common
 from repro_torch.kernels.migrate import ref
 
 
-def gather_encode(storage: torch.Tensor, pages: torch.Tensor, num_rows: int
+def gather_encode(storage: torch.Tensor, pages: torch.Tensor, num_rows: int,
+                  *, use_kernel: bool | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(R, 9, W) InterWrap pool, (n,) page ids -> (data (n, 8W), codes (n, W)).
 

@@ -5,6 +5,8 @@ the kernel in ``csrc/mixed.cu`` or raises. There is no fallback.
 """
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import torch
 
 from repro_torch.core.layouts import (DATA_LANES, LANES, Layout,
@@ -12,9 +14,13 @@ from repro_torch.core.layouts import (DATA_LANES, LANES, Layout,
 from repro_torch.kernels import common
 from repro_torch.kernels.mixed import ref
 
+if TYPE_CHECKING:      # core/ and objcache/ import the kernels
+    from repro_torch.core.pool import PoolState
+
 
 def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
-                 num_rows: int, boundary: int, status: bool = False):
+                 num_rows: int, boundary: int, status: bool = False,
+                 *, use_kernel: bool | None = None):
     """(R, 9, W) pool, (n,) page ids -> (n, 8W) corrected page data, and
     with ``status=True`` also each page's worst SECDED decode status
     ``(n,)`` int32 (0 clean, 1/2 corrected, 3 detected uncorrectable; 0
@@ -53,7 +59,9 @@ def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
 
 def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
                         layout: Layout, num_rows: int, boundary: int,
-                        num_shards: int, status: bool = False):
+                        num_shards: int, shard_id: int | None = None,
+                        status: bool = False,
+                        *, use_kernel: bool | None = None):
     """Router-fused read of global page ids from ``(S, R_local, 9, W)``
     banks -> ``(n, 8W)`` corrected page data, each page from its own bank,
     in one launch; with ``status=True`` also each page's worst SECDED
@@ -62,9 +70,15 @@ def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
 
     ``num_rows`` / ``boundary`` are the global geometry (``S * R_local``,
     ``S * b_local``). Page ids must be in range (the pool validates them
-    on the host); the kernel clamps banks and rows all the same. A banks
-    mesh reads with the shard-local form, :func:`read_correct_routed_local`.
+    on the host); the kernel clamps banks and rows all the same. An
+    integer ``shard_id`` with one bank's ``(R_local, 9, W)`` storage is
+    the reference's one-bank contract: :func:`read_correct_routed_local`,
+    the other banks' rows zero (a banks mesh reads this way).
     """
+    if shard_id is not None:
+        return read_correct_routed_local(storage, pages, layout, num_rows,
+                                         boundary, num_shards, shard_id,
+                                         status=status)
     S = num_shards
     if storage.dim() != 4 or storage.shape[0] != S \
             or storage.shape[2] != LANES or S * storage.shape[1] != num_rows \
@@ -100,7 +114,8 @@ def read_correct_routed_local(bank: torch.Tensor, pages: torch.Tensor,
                               layout: Layout, num_rows: int, boundary: int,
                               num_shards: int, shard_id: int,
                               status: bool = False,
-                              out: torch.Tensor | None = None):
+                              out: torch.Tensor | None = None,
+                              *, use_kernel: bool | None = None):
     """Shard-local router-fused read: bank ``shard_id``'s ``(R_local, 9,
     W)`` storage, ``(n,)`` global page ids -> ``(n, 8W)`` data whose rows
     of the pages other banks own are zero, and with ``status=True`` their
@@ -160,3 +175,11 @@ def read_correct_routed_local(bank: torch.Tensor, pages: torch.Tensor,
                       st, n, W, int(layout == Layout.INTERWRAP), num_rows, S,
                       b_local, extra_base_row(layout, b_local, W), shard_id)
     return (data, st) if status else data
+
+
+def read_pool(state: PoolState, pages: torch.Tensor, *,
+              use_kernel: bool | None = None) -> torch.Tensor:
+    """:func:`read_correct` of a :class:`~repro_torch.core.pool.PoolState`'s
+    storage and geometry."""
+    return read_correct(state.storage, pages, state.layout, state.num_rows,
+                        state.boundary)

@@ -45,9 +45,12 @@ def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
 
 def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
                         layout: Layout, num_rows: int, boundary: int,
-                        num_shards: int, status: bool = False):
+                        num_shards: int, shard_id: int | None = None,
+                        status: bool = False):
     """(S, R_local, 9, W) banks, (n,) global page ids -> (n, 8W) data, or
-    with ``status=True`` ``(data, status (n,) int32)``.
+    with ``status=True`` ``(data, status (n,) int32)``. An integer
+    ``shard_id`` with one bank's ``(R_local, 9, W)`` storage is
+    :func:`read_correct_routed_local`.
 
     Two passes: the router's global id -> (bank, local id), then
     :func:`read_correct` of each bank's owned local ids against the bank's
@@ -55,6 +58,10 @@ def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
     and status comes from its own bank, the sum of the reference's
     per-bank outputs.
     """
+    if shard_id is not None:
+        return read_correct_routed_local(storage, pages, layout, num_rows,
+                                         boundary, num_shards, shard_id,
+                                         status=status)
     from repro_torch.shard import router      # shard/ sits above kernels/
     shard, local = router.route(pages, num_rows, num_shards)
     rows_local, b_local = num_rows // num_shards, boundary // num_shards

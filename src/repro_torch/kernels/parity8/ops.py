@@ -21,7 +21,8 @@ def _check(data: torch.Tensor) -> tuple[int, int]:
     return data.shape[0], data.shape[1]
 
 
-def encode(data: torch.Tensor) -> torch.Tensor:
+def encode(data: torch.Tensor,
+           *, use_kernel: bool | None = None) -> torch.Tensor:
     """(N, D) int32 words -> (N, D//64) packed parity bytes."""
     n, d = _check(data)
     common.check_contiguous("parity8_encode", data)
@@ -34,7 +35,8 @@ def encode(data: torch.Tensor) -> torch.Tensor:
     return parity
 
 
-def check(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
+def check(data: torch.Tensor, parity: torch.Tensor,
+          *, use_kernel: bool | None = None) -> torch.Tensor:
     """(N, D), (N, D//64) -> per-line status (N, D//16) int32: 0 ok,
     1 corrupt."""
     n, d = _check(data)
@@ -52,7 +54,8 @@ def check(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
 
 
 def write(storage: torch.Tensor, pages: torch.Tensor, data: torch.Tensor,
-          boundary: int) -> torch.Tensor:
+          boundary: int,
+          *, use_kernel: bool | None = None) -> torch.Tensor:
     """Land ``(n, 8W)`` pages in a PARITY pool's ``(R, 9, W)`` storage in
     place, with the packed parity of its CREAM and extra pages; returns
     ``storage``. On the card this is one launch: each page is read once,

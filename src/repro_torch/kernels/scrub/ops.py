@@ -13,7 +13,9 @@ from repro_torch.kernels import common
 from repro_torch.kernels.scrub import ref
 
 
-def scrub_rows(storage: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def scrub_rows(storage: torch.Tensor,
+               *, use_kernel: bool | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(R, 9, W) SECDED rows -> (corrected rows, per-beat status (R, 4W))."""
     if storage.dim() != 3 or storage.shape[1] != LANES \
             or storage.shape[2] % 8:
@@ -32,7 +34,8 @@ def scrub_rows(storage: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return out, status
 
 
-def scrub_secded(storage: torch.Tensor, start: int, stop: int | None = None
+def scrub_secded(storage: torch.Tensor, start: int, stop: int | None = None,
+                 *, use_kernel: bool | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scrub rows ``[start, stop)`` of a pool buffer (``stop`` defaults to
     R) -> ``(storage', status, row_bad)``. Functional, as the reference:

@@ -108,7 +108,7 @@ def _step_and_specs(cfg: ModelConfig, shape: InputShape, mesh, *,
         return fn, (p, o, b)
     if shape.kind == "prefill":
         def fn(params, tokens):
-            return transformer.forward_fn(
+            return transformer.forward(
                 params, cfg, tokens, remat=remat,
                 logits_mode="last" if logits_last else "all")
         p = sh.param_specs(cfg, mesh)
@@ -116,7 +116,7 @@ def _step_and_specs(cfg: ModelConfig, shape: InputShape, mesh, *,
         return fn, (p, b["tokens"])
     if shape.kind == "decode":
         def fn(params, state, tokens):
-            return transformer.decode_step_fn(params, cfg, state, tokens)
+            return transformer.decode_step(params, cfg, state, tokens)
         p = sh.param_specs(cfg, mesh)
         st = sh.decode_state_specs(cfg, shape, mesh)
         tok = sh.decode_token_spec(shape, mesh)

@@ -224,3 +224,11 @@ def apply_attn_decode_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     out = torch.einsum("bhgs,bshd->bhgd", probs, cv.float())
     y = out.reshape(b, 1, hq * hd).to(x.dtype) @ p.wo
     return y, (k_new.reshape(b, hkv, hd), v_new.reshape(b, hkv, hd))
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_attn: int,
+                  dtype, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stacked ``(n_attn_layers, B, S_max, Hkv, D)`` zeroed cache pair."""
+    shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

@@ -116,6 +116,18 @@ class Embedding(nn.Module):
         return self.table[tokens]
 
 
+def apply_embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` from the tree's ``{"table"}``."""
+    return p["table"][tokens]
+
+
+def apply_lm_head(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Untied LM head ``x @ p["w"]``, vocab over 'model'."""
+    logits = x @ p["w"]
+    spec = ("data",) + (None,) * (logits.dim() - 2) + ("model",)
+    return constraint(logits, *spec)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token NLL in float32. logits (B, S, V); labels (B, S) int.
 

@@ -20,11 +20,13 @@ from repro_torch.models.transformer import Transformer
 
 
 def build_model(cfg: ModelConfig, attn_impl: str = "xla", seed: int = 0,
-                device=None) -> Transformer:
+                device=None, remat: str = "none") -> Transformer:
     """A decoder with weights drawn from ``seed`` on ``device`` whose
     prefill and forward attend with ``attn_impl`` (``"xla"`` or
-    ``"flash"``)."""
-    return Transformer(cfg, seed=seed, device=device, attn_impl=attn_impl)
+    ``"flash"``); ``remat`` is kept as the model's ``remat``, the
+    reference's default for its forward and loss."""
+    return Transformer(cfg, seed=seed, device=device, attn_impl=attn_impl,
+                       remat=remat)
 
 
 def _copy(dst: torch.Tensor, src) -> None:

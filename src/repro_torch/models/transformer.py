@@ -33,14 +33,19 @@ pos{i}/{norm1,block,norm2,mixer}/...`` stacked over stages;
 (``torch.utils.checkpoint``; the reference's ``jax.checkpoint`` of each
 stage). The reference trains with einsum attention: the flash kernel has
 no backward there or here, and its wrapper raises under autograd.
-:func:`decode_step_fn` is the reference's ``decode_step`` over the same
-trees (the dry-run's decode cell). The tree functions place activations
+The reference's functional API over the same trees is here too:
+:func:`init_params`, :func:`forward`, :func:`prefill`,
+:func:`decode_step` (the dry-run's decode cell) and
+:func:`decode_step_paged`, each giving the values of the method of the
+same name on the same weights (``forward_fn`` and ``decode_step_fn`` are
+their earlier names). The tree functions place activations
 with :func:`repro_torch.distributed.sharding.constraint` where the
 reference does: identities with no mesh.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import Any
 
 import torch
 import torch.utils.checkpoint
@@ -50,8 +55,11 @@ from repro_torch.configs.base import BlockKind, MixerKind, ModelConfig
 from repro_torch.distributed.sharding import active_mesh, constraint
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention, moe, ssm, xlstm
-from repro_torch.models.common import (MLP, Embedding, RMSNorm, apply_mlp,
-                                      cross_entropy, dense_init, rms_norm)
+from repro_torch.models.common import (MLP, Embedding, RMSNorm, apply_embed,
+                                      apply_mlp, cross_entropy, dense_init,
+                                      rms_norm)
+
+Params = dict[str, Any]
 
 ATTN_IMPLS = ("xla", "flash")
 REMATS = ("none", "block", "full")
@@ -127,6 +135,18 @@ def _mix(kind: MixerKind, norm2, p, cfg: ModelConfig, x: torch.Tensor):
     return x + y, aux
 
 
+def _store_state(pos: dict, kind: BlockKind, stage: int, st, s: int
+                 ) -> None:
+    """Write a block's decode state at position ``s`` (its prefill's)
+    into stage ``stage`` of its pattern position's state ``pos``."""
+    if kind == BlockKind.ATTN:
+        pos["k"][stage, :, :s] = st[0]
+        pos["v"][stage, :, :s] = st[1]
+    else:
+        for name, t in st.items():
+            pos[name][stage] = t
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict:
     """Zeroed decode state: ``cache_len`` (B,) int32 and, per pattern
@@ -183,11 +203,16 @@ class Transformer(nn.Module):
     """The decoder, with weights drawn from ``seed`` on ``device``."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, device=None,
-                 attn_impl: str = "xla"):
+                 attn_impl: str = "xla", remat: str = "none"):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        if remat not in REMATS:
+            raise ValueError(f"remat {remat!r} not in {REMATS}")
         self.attn_impl = attn_impl
+        # the reference model's remat for forward and loss; the methods
+        # below take no gradient, so nothing is recomputed here
+        self.remat = remat
         self.cfg = cfg
         dtype = cfg.activation_dtype
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
@@ -287,13 +312,8 @@ class Transformer(nn.Module):
 
         def keep(layer, st):
             stage, i = divmod(layer, self.cfg.period)
-            pos = state[f"pos{i}"]
-            if self.layers[layer].kind == BlockKind.ATTN:
-                pos["k"][stage, :, :s] = st[0]
-                pos["v"][stage, :, :s] = st[1]
-            else:
-                for name, t in st.items():
-                    pos[name][stage] = t
+            _store_state(state[f"pos{i}"], self.layers[layer].kind, stage,
+                         st, s)
         x, _ = self._run(tokens, keep)
         state["cache_len"].fill_(s)
         return self._head(x, logits_mode), state
@@ -400,9 +420,9 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     table is gathered (as ZeRO-3 gathers a weight before its use) and
     each rank looks up its own tokens; the table's gradient comes back as
     partial sums."""
-    table = params["embed"]["table"]
     if active_mesh() is None:
-        return table[tokens]
+        return apply_embed(params["embed"], tokens)
+    table = params["embed"]["table"]
     from torch.distributed.tensor import DTensor, Partial, Replicate
     table = constraint(table, None, None)
     # partial over the mesh dims that split the tokens, whole over the rest
@@ -425,10 +445,9 @@ def _lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return logits if spec is None else constraint(logits, *spec)
 
 
-def forward_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-               attn_impl: str = "xla", remat: str = "none",
-               logits_mode: str = "all"
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            attn_impl: str = "xla", remat: str = "none",
+            logits_mode: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits, aux loss), grad-enabled: the reference's
     ``forward`` over its parameter tree. ``remat`` ``"block"`` or
     ``"full"`` recomputes each stage in the backward pass.
@@ -456,12 +475,15 @@ def forward_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, torch.zeros((), device=x.device) if aux is None else aux
 
 
+forward_fn = forward            # the name this module first gave it
+
+
 def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, aux_weight: float = AUX_WEIGHT,
             attn_impl: str = "xla", remat: str = "none") -> torch.Tensor:
     """Mean token NLL of ``labels`` plus the weighted aux loss, with a
     gradient to every leaf of ``params`` that requires one."""
-    logits, aux = forward_fn(params, cfg, tokens, attn_impl, remat)
+    logits, aux = forward(params, cfg, tokens, attn_impl, remat)
     return cross_entropy(logits, labels) + aux_weight * aux
 
 
@@ -490,8 +512,8 @@ def decode_stage(cfg: ModelConfig, sp: dict, st: dict, x: torch.Tensor,
     return x, new_st
 
 
-def decode_step_fn(params: dict, cfg: ModelConfig, state: dict,
-                   tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+def decode_step(params: Params, cfg: ModelConfig, state: Params,
+                tokens: torch.Tensor) -> tuple[torch.Tensor, Params]:
     """One decode step over the reference's parameter tree and state tree
     (``init_decode_state``'s): tokens (B,) -> (logits (B, V), new state),
     as the reference's ``decode_step``. Without a mesh the attention
@@ -504,10 +526,81 @@ def decode_step_fn(params: dict, cfg: ModelConfig, state: dict,
                       _unstack(per_stage, cfg.num_stages)):
         x, st = decode_stage(cfg, sp, st, x, cache_len)
         news.append(st)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _lm_logits(params, cfg, x,
-                        None if cfg.tie_embeddings else ("data", None,
-                                                         "model"))
     new_state = _restack(news)
     new_state["cache_len"] = cache_len + 1
-    return logits[:, 0], new_state
+    return _head_logits(params, cfg, x)[:, 0], new_state
+
+
+decode_step_fn = decode_step    # the name this module first gave it
+
+
+# ---------------------------------------------------------------------------
+# The rest of the reference's functional API over the parameter tree
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+    """The reference's parameter tree of a model drawn from ``seed`` on
+    ``device``: :func:`repro_torch.models.model.params_tree` of
+    :class:`Transformer`, whose explicit generator stands in for the JAX
+    key."""
+    from repro_torch.models.model import params_tree
+    return params_tree(Transformer(cfg, seed=seed, device=device))
+
+
+def _head_logits(params: Params, cfg: ModelConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head of a decode or prefill hidden state."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_logits(params, cfg, x,
+                      None if cfg.tie_embeddings else ("data", None, "model"))
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            max_len: int, attn_impl: str = "xla"
+            ) -> tuple[torch.Tensor, Params]:
+    """tokens (B, S) -> (logits (B, S, V), the decode state at position
+    S): :meth:`Transformer.prefill_state` over the parameter tree."""
+    b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    state = init_decode_state(cfg, b, max_len, tokens.device)
+    x = _embed(params, tokens)
+    for stage, sp in enumerate(_unstack(params["stages"], cfg.num_stages)):
+        for i, (bk, mk) in enumerate(cfg.pattern):
+            entry = sp[f"pos{i}"]
+            h = rms_norm(x, entry["norm1"], cfg.norm_eps)
+            y, st = _block_full(bk, SimpleNamespace(**entry["block"]), cfg,
+                                h, attn_impl, True)
+            _store_state(state[f"pos{i}"], bk, stage, st, s)
+            x, _ = _mix(mk, entry.get("norm2"), _mixer_of(entry), cfg, x + y)
+    state["cache_len"].fill_(s)
+    return _head_logits(params, cfg, x), state
+
+
+def decode_step_paged(params: Params, cfg: ModelConfig, state: Params,
+                      tokens: torch.Tensor,
+                      kv: tuple[torch.Tensor, torch.Tensor]):
+    """One decode step against externally gathered paged KV
+    (attention-only patterns): :meth:`Transformer.decode_step_paged` over
+    the parameter tree -> ``(logits (B, V), {"cache_len": cache_len + 1},
+    (k_new, v_new))``."""
+    _require_attention_only(cfg)
+    x = _embed(params, tokens[:, None])
+    cache_len = state["cache_len"]
+    k_all, v_all = kv
+    news_k, news_v = [], []
+    stages = _unstack(params["stages"], cfg.num_stages)
+    for layer in range(cfg.num_layers):
+        stage, i = divmod(layer, cfg.period)
+        entry = stages[stage][f"pos{i}"]
+        h = rms_norm(x, entry["norm1"], cfg.norm_eps)
+        y, (kn, vn) = attention.apply_attn_decode_paged(
+            SimpleNamespace(**entry["block"]), cfg, h,
+            (k_all[layer], v_all[layer]), cache_len)
+        news_k.append(kn)
+        news_v.append(vn)
+        x, _ = _mix(cfg.pattern[i][1], entry.get("norm2"), _mixer_of(entry),
+                    cfg, x + y)
+    return (_head_logits(params, cfg, x)[:, 0], {"cache_len": cache_len + 1},
+            (torch.stack(news_k), torch.stack(news_v)))

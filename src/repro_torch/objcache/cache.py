@@ -39,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.pool import PoolState
+from repro_torch.core.pool import PoolLike, PoolState
 from repro_torch.core.protection import _ORDER, Protection
 from repro_torch.kernels.common import to_u32, upload
 from repro_torch.kernels.hash import ops as hash_ops
@@ -170,7 +170,7 @@ class ObjCache:
 
     # -- plumbing ------------------------------------------------------------
     @property
-    def pool(self):
+    def pool(self) -> PoolLike:
         return self.vm.pools[self.pool_name]
 
     @property

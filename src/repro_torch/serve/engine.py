@@ -66,6 +66,9 @@ from repro_torch.serve.scheduler import Scheduler, ServeRequest
 from repro_torch.shard.pool import ShardedPool
 from repro_torch.vm.address_space import VirtualMemory
 
+# Re-export: the old engine's request type moved to the scheduler.
+Request = ServeRequest
+
 
 def _percentile(xs: list[float], q: float) -> float:
     return float(np.percentile(np.asarray(xs), q)) if xs else 0.0

@@ -123,6 +123,10 @@ class PagedKV:
         need = self.blocks_for(n_tokens) - self._rows[row].blocks
         return max(need, 0) * self.n_layers
 
+    def mapped_pages(self, row: int) -> int:
+        """Pages the row currently maps (device- or host-resident)."""
+        return self._rows[row].blocks * self.n_layers
+
     def row_frames_of_class(self, row: int,
                             reliability: Protection) -> int:
         """Device-resident pages of the row on frames of storage class
@@ -143,6 +147,10 @@ class PagedKV:
         alloc = self.vm.allocators[self.pool_name]
         i = _ORDER.index(reliability)
         return sum(len(alloc.free[cls]) for cls in _ORDER[i:])
+
+    def used_pages(self) -> int:
+        """Pages mapped by every row, plus the scratch page."""
+        return int((self._table >= 0).sum()) + 1
 
     # -- row lifecycle -------------------------------------------------------
     def open(self, tier: str) -> int:

@@ -144,6 +144,9 @@ class ShardedPool:
     #: the 1-D ``banks`` mesh the banks lie on, one a rank
     #: (:func:`repro_torch.launch.mesh.make_banks_mesh`); None: one card
     mesh: Any = None
+    #: kept for the reference's signature and ignored: the storage's
+    #: device decides (``repro_torch`` docstring)
+    use_kernel: bool | None = None
 
     # -- geometry (global page ids, the same as PoolState's) ----------------
     @property
@@ -278,9 +281,7 @@ class ShardedPool:
         ids = pool_lib._host_ids(self, pages)
         _note_dispatch("read_writeback")
         _memprof_routed(self, "gather", ids)
-        copy = dataclasses.replace(self, storage=self.storage.clone())
-        data, status = _read_status(copy, ids, pool_lib._writeback_in_place)
-        return data, status, copy
+        return read_any_writeback(self, ids)
 
     def migrate(self, src_pages, dst_pages, *,
                 donate: bool = True) -> "ShardedPool":
@@ -304,17 +305,16 @@ class ShardedPool:
 
     def read_any(self, pages) -> torch.Tensor:
         pool_lib._warn_deprecated("read_any", "read(pages)")
-        return _read(self, pool_lib._host_ids(self, pages))
+        return read_any(self, pages)
 
     def read_any_status(self, pages) -> tuple[torch.Tensor, torch.Tensor]:
         pool_lib._warn_deprecated("read_any_status",
                                   "read(pages, status=True)")
-        return _read(self, pool_lib._host_ids(self, pages), status=True)
+        return read_any_status(self, pages)
 
     def write_any(self, pages, data) -> "ShardedPool":
         pool_lib._warn_deprecated("write_any", "write(pages, data)")
-        copy = dataclasses.replace(self, storage=self.storage.clone())
-        return _write(copy, pool_lib._host_ids(self, pages), data)
+        return write_any(self, pages, data)
 
     def read_pages(self, pages) -> torch.Tensor:
         pool_lib._warn_deprecated("read_pages", "read(pages)")
@@ -342,7 +342,7 @@ class ShardedPool:
     def scrub(self, use_kernel: bool = False):
         """Sweep + repair every bank -> ``(new_pool, ScrubStats)``; leaves
         this pool valid. ``use_kernel`` is ignored, as for local pools."""
-        return scrub(self)
+        return scrub(self, use_kernel=use_kernel)
 
 
 def _served(pool: "ShardedPool"):
@@ -404,7 +404,8 @@ def _write(pool: "ShardedPool", ids: np.ndarray, data, valid=None
 
 def make_sharded_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
                       boundary: int | None = None, *, num_shards: int,
-                      row_words: int = 64, mesh=None, daec_rows: int = 0,
+                      row_words: int = 64, mesh=None,
+                      use_kernel: bool | None = None, daec_rows: int = 0,
                       device=None) -> ShardedPool:
     """A zeroed pool of ``num_rows`` global rows in ``num_shards`` banks,
     on ``device`` (``cuda`` unless asked otherwise).
@@ -443,7 +444,47 @@ def make_sharded_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
     storage = torch.zeros((banks, num_rows // num_shards, LANES, row_words),
                           dtype=torch.int32, device=device)
     return ShardedPool(storage, boundary // num_shards, layout, row_words,
-                       daec_rows // num_shards, mesh)
+                       daec_rows // num_shards, mesh, use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# General access: arbitrary global page-id vectors (the reference's module
+# functions, without the methods' telemetry)
+# ---------------------------------------------------------------------------
+
+
+def read_any_status(state: ShardedPool, pages
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch read + per-page status of global page ids -> ``(data (n,
+    page_words) int32, status (n,) int32)``: the routed read of
+    :meth:`ShardedPool.read` (on a mesh, then one all-reduce)."""
+    return _read(state, pool_lib._host_ids(state, pages), status=True)
+
+
+def read_any(state: ShardedPool, pages) -> torch.Tensor:
+    """Decode-corrected batch read of global page ids -> ``(n,
+    page_words)`` int32; a pool with a DAEC tier reads through the status
+    read (the fused read corrects with SECDED only)."""
+    return _read(state, pool_lib._host_ids(state, pages))
+
+
+def write_any(state: ShardedPool, pages, data, valid=None) -> ShardedPool:
+    """Code-maintaining batch write of global page ids on a copy of the
+    storage (functional, as the reference): ``state`` stays valid.
+    ``valid`` (optional ``(n,)`` bool) drops masked rows."""
+    copy = dataclasses.replace(state, storage=state.storage.clone())
+    return _write(copy, pool_lib._host_ids(state, pages), data, valid)
+
+
+def read_any_writeback(state: ShardedPool, pages
+                       ) -> tuple[torch.Tensor, torch.Tensor, ShardedPool]:
+    """Write-back read of global page ids: each bank persists the
+    corrections of the pages it owns -> ``(data, status, new_pool)``, on a
+    copy (``state`` stays valid)."""
+    ids = pool_lib._host_ids(state, pages)
+    copy = dataclasses.replace(state, storage=state.storage.clone())
+    data, status = _read_status(copy, ids, pool_lib._writeback_in_place)
+    return data, status, copy
 
 
 def _read_status(pool: ShardedPool, ids: np.ndarray,
@@ -494,30 +535,30 @@ def _stream_ids(pool: ShardedPool, pages) -> np.ndarray:
     return local.reshape(p.shape)
 
 
-def read_streams(pool: ShardedPool, pages) -> torch.Tensor:
+def read_streams(state: ShardedPool, pages) -> torch.Tensor:
     """Serve ``S`` request streams, one per bank: ``pages`` is ``(S, n)``
     global ids, stream ``s`` touching bank ``s`` only (plan them with
     :func:`repro_torch.shard.router.plan_streams`). Each bank reads only
     its own ``n`` pages. Returns ``(S, n, page_words)``; on a mesh, as the
     reference's result sharded over ``banks``, this rank's block of it,
     ``(1, n, page_words)``."""
-    local = _stream_ids(pool, pages)
-    _memprof_routed(pool, "gather", pages, stream="streams")
-    return torch.stack([pool_lib._read_any_status(pool.bank(s), local[s])[0]
-                        for s in _served(pool)])
+    local = _stream_ids(state, pages)
+    _memprof_routed(state, "gather", pages, stream="streams")
+    return torch.stack([pool_lib._read_any_status(state.bank(s), local[s])[0]
+                        for s in _served(state)])
 
 
-def write_streams(pool: ShardedPool, pages, data, valid=None
+def write_streams(state: ShardedPool, pages, data, valid=None
                   ) -> ShardedPool:
     """Per-bank write of ``S`` aligned streams (see :func:`read_streams`):
     ``data`` ``(S, n, page_words)``, ``valid`` optional ``(S, n)`` bool; on
     a mesh each rank writes its own row ``s`` of them."""
-    local = _stream_ids(pool, pages)
-    _memprof_routed(pool, "scatter", pages, stream="streams")
-    for s in _served(pool):
-        pool_lib._write_in_place(pool.bank(s), local[s], data[s],
+    local = _stream_ids(state, pages)
+    _memprof_routed(state, "scatter", pages, stream="streams")
+    for s in _served(state):
+        pool_lib._write_in_place(state.bank(s), local[s], data[s],
                                  None if valid is None else valid[s])
-    return pool
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -525,28 +566,28 @@ def write_streams(pool: ShardedPool, pages, data, valid=None
 # ---------------------------------------------------------------------------
 
 
-def migrate_pages(pool: ShardedPool, src_pages, dst_pages,
+def migrate_pages(state: ShardedPool, src_pages, dst_pages,
                   donate: bool = True) -> ShardedPool:
     """Live in-pool migration ``src -> dst`` across bank boundaries.
 
     Every source page is read decode-corrected (one routed read), then
     each lands in its destination's bank with a code-maintaining write.
-    ``donate=False`` works on a copy and keeps ``pool`` valid.
+    ``donate=False`` works on a copy and keeps ``state`` valid.
     """
-    src = pool_lib._host_ids(pool, src_pages)
-    dst = pool_lib._host_ids(pool, dst_pages)
+    src = pool_lib._host_ids(state, src_pages)
+    dst = pool_lib._host_ids(state, dst_pages)
     if obs_metrics.enabled():
         obs_metrics.counter(
             obs_metrics.NAME_SHARD_RING_PAGES,
             "pages exchanged over the ppermute migration ring"
         ).inc(int(src.shape[0]))
     with obs_tracing.span("shard.migrate.ring", pages=int(src.shape[0]),
-                          shards=pool.num_shards):
-        if pool.mesh is not None:
-            return _migrate_ring(pool, src, dst, donate)
-        data = _read(pool, src)
-        target = pool if donate else dataclasses.replace(
-            pool, storage=pool.storage.clone())
+                          shards=state.num_shards):
+        if state.mesh is not None:
+            return _migrate_ring(state, src, dst, donate)
+        data = _read(state, src)
+        target = state if donate else dataclasses.replace(
+            state, storage=state.storage.clone())
         return _write(target, dst, data)
 
 
@@ -592,88 +633,89 @@ def _ring_shift(pool: ShardedPool, buf: torch.Tensor) -> torch.Tensor:
     return recv
 
 
-def evicted_extra_pages(pool: ShardedPool, new_boundary: int) -> list[int]:
+def evicted_extra_pages(state: ShardedPool, new_boundary: int) -> list[int]:
     """Global extra-page ids a move to ``new_boundary`` would evict: the
     trailing range, since extras stripe round-robin."""
-    if new_boundary >= pool.boundary:
+    if new_boundary >= state.boundary:
         return []
-    x_new = extra_page_count(pool.layout, new_boundary // pool.num_shards,
-                             pool.row_words)
-    return list(range(pool.num_rows + pool.num_shards * x_new,
-                      pool.num_rows + pool.num_extra_pages))
+    x_new = extra_page_count(state.layout, new_boundary // state.num_shards,
+                             state.row_words)
+    return list(range(state.num_rows + state.num_shards * x_new,
+                      state.num_rows + state.num_extra_pages))
 
 
-def repartition(pool: ShardedPool, new_boundary: int
+def repartition(state: ShardedPool, new_boundary: int
                 ) -> tuple[ShardedPool, dict]:
     """Move every bank's CREAM/SECDED boundary in lockstep; the semantics
     of :func:`repro_torch.core.pool.repartition` per bank. Works on a copy.
     """
-    router.check_geometry(pool.num_rows, new_boundary, pool.num_shards)
-    old = pool.boundary
+    router.check_geometry(state.num_rows, new_boundary, state.num_shards)
+    old = state.boundary
     info = {"old_boundary": old, "new_boundary": new_boundary,
             "evicted_extra_pages": [], "pages_reencoded": 0}
     if new_boundary == old:
-        return pool, info
-    info["evicted_extra_pages"] = evicted_extra_pages(pool, new_boundary)
+        return state, info
+    info["evicted_extra_pages"] = evicted_extra_pages(state, new_boundary)
     info["pages_reencoded"] = abs(new_boundary - old)
-    nb_local = new_boundary // pool.num_shards
+    nb_local = new_boundary // state.num_shards
     with obs_tracing.span("shard.repartition", old_boundary=old,
                           new_boundary=new_boundary,
-                          shards=pool.num_shards), obs_memprof.suspended():
-        banks = [pool_lib.repartition(pool.bank(s), nb_local)[0].storage
-                 for s in _served(pool)]
-    return dataclasses.replace(pool, storage=torch.stack(banks),
+                          shards=state.num_shards), obs_memprof.suspended():
+        banks = [pool_lib.repartition(state.bank(s), nb_local)[0].storage
+                 for s in _served(state)]
+    return dataclasses.replace(state, storage=torch.stack(banks),
                                boundary_local=nb_local), info
 
 
-def set_daec_rows(pool: ShardedPool, daec_rows: int) -> ShardedPool:
+def set_daec_rows(state: ShardedPool, daec_rows: int) -> ShardedPool:
     """Resize the SEC-DAEC tier (``daec_rows`` global, a multiple of S):
     every bank re-encodes its own top span. Works on a copy."""
-    S = pool.num_shards
+    S = state.num_shards
     if daec_rows % S:
         raise ValueError(
             f"daec_rows ({daec_rows}) must shard evenly over {S}")
-    if not 0 <= daec_rows <= pool.num_rows - pool.boundary:
+    if not 0 <= daec_rows <= state.num_rows - state.boundary:
         raise ValueError(
             f"daec_rows ({daec_rows}) must fit the protected region "
-            f"[{pool.boundary}, {pool.num_rows})")
+            f"[{state.boundary}, {state.num_rows})")
     n_local = daec_rows // S
-    if n_local == pool.daec_rows_local:
-        return pool
-    with obs_tracing.span("shard.set_daec_rows", old=pool.daec_rows,
+    if n_local == state.daec_rows_local:
+        return state
+    with obs_tracing.span("shard.set_daec_rows", old=state.daec_rows,
                           new=daec_rows, shards=S):
-        banks = [pool_lib.set_daec_rows(pool.bank(s), n_local).storage
-                 for s in _served(pool)]
-    return dataclasses.replace(pool, storage=torch.stack(banks),
+        banks = [pool_lib.set_daec_rows(state.bank(s), n_local).storage
+                 for s in _served(state)]
+    return dataclasses.replace(state, storage=torch.stack(banks),
                                daec_rows_local=n_local)
 
 
-def scrub(pool: ShardedPool):
+def scrub(state: ShardedPool, use_kernel: bool = False):
     """Sweep every bank -> ``(new_pool, ScrubStats)``: the censuses
     summed, corrupt rows mapped back to global rows (``local * S + bank``)
     and sorted. Works on a copy. On a mesh each rank sweeps its bank, one
     all-reduce sums the censuses and an all-gather collects the corrupt
-    rows, so every rank gets the whole pool's stats."""
+    rows, so every rank gets the whole pool's stats. ``use_kernel`` is
+    ignored: the storage's device decides."""
     from repro_torch.core.scrubber import ScrubStats
     from repro_torch.core.scrubber import scrub as _scrub
-    S = pool.num_shards
+    S = state.num_shards
     banks, merged, corrupt = [], {}, []
-    for s in _served(pool):
-        new_bank, stats = _scrub(pool.bank(s))
+    for s in _served(state):
+        new_bank, stats = _scrub(state.bank(s), use_kernel=use_kernel)
         banks.append(new_bank.storage)
         for f in dataclasses.fields(ScrubStats):
             if f.name != "corrupt_rows":
                 merged[f.name] = merged.get(f.name, 0) + getattr(stats,
                                                                  f.name)
         corrupt.extend(r * S + s for r in stats.corrupt_rows)
-    if pool.mesh is not None:
+    if state.mesh is not None:
         census = torch.tensor(list(merged.values()), dtype=torch.int64,
-                              device=pool.device)
-        _all_reduce(pool, census)
+                              device=state.device)
+        _all_reduce(state, census)
         merged = dict(zip(merged, census.tolist()))
         parts = [None] * S
         dist.all_gather_object(parts, corrupt,
-                               group=pool.mesh.device_mesh.get_group())
+                               group=state.mesh.device_mesh.get_group())
         corrupt = [r for part in parts for r in part]
-    return (dataclasses.replace(pool, storage=torch.stack(banks)),
+    return (dataclasses.replace(state, storage=torch.stack(banks)),
             ScrubStats(corrupt_rows=tuple(sorted(corrupt)), **merged))

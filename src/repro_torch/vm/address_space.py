@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.layouts import DEFAULT_ROW_WORDS, Layout
-from repro_torch.core.pool import PoolState, make_pool
+from repro_torch.core.pool import PoolLike, make_pool
 from repro_torch.core.protection import _ORDER, Protection
 from repro_torch.kernels.common import resolve_device, to_u32
 from repro_torch.obs import metrics as obs_metrics
@@ -43,7 +43,7 @@ def cream_protection(layout: Layout) -> Protection:
     return Protection.PARITY if layout == Layout.PARITY else Protection.NONE
 
 
-def frame_class(state: PoolState, phys: int) -> Protection:
+def frame_class(state: PoolLike, phys: int) -> Protection:
     """Storage class of frame ``phys`` under the pool's current boundary."""
     if state.boundary <= phys < state.num_rows:
         if phys >= state.num_rows - state.daec_rows:
@@ -52,7 +52,7 @@ def frame_class(state: PoolState, phys: int) -> Protection:
     return cream_protection(state.layout)
 
 
-def frame_classes(state: PoolState, phys: np.ndarray) -> np.ndarray:
+def frame_classes(state: PoolLike, phys: np.ndarray) -> np.ndarray:
     """:func:`frame_class` of a vector of frames -> their class names."""
     return np.where(
         (phys >= state.boundary) & (phys < state.num_rows),
@@ -102,13 +102,13 @@ class FrameAllocator:
     ``(tenant, vpn)``, the reverse translation migration walks.
     """
 
-    def __init__(self, state: PoolState):
+    def __init__(self, state: PoolLike):
         self.free: dict[Protection, dict[int, None]] = {}
         self.owner: dict[int, tuple[str, int]] = {}
         self._class: dict[int, Protection] = {}
         self.rebuild(state)
 
-    def rebuild(self, state: PoolState) -> None:
+    def rebuild(self, state: PoolLike) -> None:
         """Recompute free lists after a boundary move; refuse if a mapped
         frame no longer exists (that would silently lose data)."""
         lost = [p for p in self.owner if p >= state.num_pages]
@@ -147,7 +147,7 @@ class FrameAllocator:
         del self._class[phys]
         self.owner[phys] = (tenant, vpn)
 
-    def release(self, state: PoolState, phys: int) -> None:
+    def release(self, state: PoolLike, phys: int) -> None:
         del self.owner[phys]
         cls = frame_class(state, phys)
         self.free[cls][phys] = None
@@ -182,7 +182,7 @@ class VirtualMemory:
     def __init__(self, row_words: int = DEFAULT_ROW_WORDS, device=None):
         self.row_words = row_words
         self.device = resolve_device(device)
-        self.pools: dict[str, PoolState] = {}
+        self.pools: dict[str, PoolLike] = {}
         self.allocators: dict[str, FrameAllocator] = {}
         self.tenants: dict[str, AddressSpace] = {}
         self.swap: dict[int, np.ndarray] = {}
@@ -193,7 +193,7 @@ class VirtualMemory:
     def add_pool(self, name: str, num_rows: int,
                  layout: Layout = Layout.INTERWRAP,
                  boundary: int | None = None, shards: int = 1,
-                 mesh=None, daec_rows: int = 0):
+                 mesh=None, daec_rows: int = 0) -> PoolLike:
         """Create a pool under VM management: a local pool, or with
         ``shards > 1`` or a ``mesh`` a
         :class:`~repro_torch.shard.pool.ShardedPool` of that many banks
@@ -219,7 +219,7 @@ class VirtualMemory:
         obs_metrics.record_pool_capacity(name, state)
         return state
 
-    def adopt_pool(self, name: str, state) -> None:
+    def adopt_pool(self, name: str, state: PoolLike) -> None:
         """Bring an existing pool (local or sharded) under VM management,
         every frame free. It must live on this VM's device."""
         if state.row_words != self.row_words:

@@ -67,8 +67,9 @@ def _scatter_coded_rows(storage: torch.Tensor, rows: torch.Tensor,
 class MigrationEngine:
     """Relocates mapped pages between frames without losing contents."""
 
-    def __init__(self, vm: VirtualMemory):
+    def __init__(self, vm: VirtualMemory, use_kernel: bool | None = None):
         self.vm = vm
+        self.use_kernel = use_kernel    # ignored: the pool's device decides
         self.stats = MigrationStats()
 
     # -- building blocks -----------------------------------------------------

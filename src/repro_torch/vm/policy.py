@@ -25,7 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from repro_torch.core.monitor import ErrorMonitor, MonitorConfig
-from repro_torch.core.pool import PoolState
+from repro_torch.core.pool import PoolLike
 from repro_torch.core.protection import (_ORDER, Protection, at_least,
                                          stronger)
 from repro_torch.core.scrubber import ScrubStats
@@ -35,7 +35,7 @@ from repro_torch.vm.address_space import (VirtualMemory, cream_protection,
 from repro_torch.vm.migration import MigrationEngine
 
 
-def pool_protection(state: PoolState) -> Protection:
+def pool_protection(state: PoolLike) -> Protection:
     """The protection level a pool currently guarantees (its weakest part)."""
     if state.boundary == 0:
         return Protection.SECDED

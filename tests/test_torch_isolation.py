@@ -1,6 +1,7 @@
 """The port stands alone: it loads no JAX, imports nothing of the reference
 package or of ``benchmarks/``, and never runs on the CPU unless asked.
 """
+import importlib
 import os
 import pkgutil
 import re
@@ -35,6 +36,9 @@ FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
     r"from\s+repro(\.|\s)\S*\s*import|import\s+benchmarks\b|"
     r"from\s+benchmarks\b)", re.M)
+EXAMPLES = ("quickstart", "vm_multitenant", "adaptive_reliability",
+            "objcache_memcached", "serve_kv_cream", "observe_serving",
+            "train_lm")
 CFG = ModelConfig(name="serve-test", family="dense", num_layers=2,
                   d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
                   vocab_size=256, head_dim=16, dtype="float32")
@@ -75,7 +79,9 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.distributed.sharding",
             "repro_torch.distributed.fault_tolerance",
             "repro_torch.distributed.elastic",
-            "repro_torch.launch.train"} <= set(names)
+            "repro_torch.launch.train"} | {
+                f"repro_torch.examples.{e}" for e in EXAMPLES + (
+                    "cache_sim",)} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -109,6 +115,14 @@ def test_forbidden_pattern_catches_what_it_must():
         assert not FORBIDDEN.search(line), line
 
 
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_cli_imports_no_jax(name):
+    """``python -m repro_torch.examples.<name> --help``: the example's
+    import chain needs neither JAX, the reference package nor
+    ``benchmarks``."""
+    assert "--device" in _help_without_jax(f"repro_torch.examples.{name}")
+
+
 @pytest.mark.parametrize("entry", [
     lambda: Engine(CFG, max_batch=2, max_len=32),
     lambda: VirtualMemory(row_words=64),
@@ -125,10 +139,13 @@ def test_forbidden_pattern_catches_what_it_must():
     lambda: make_softecc(18, 64),
     lambda: SyntheticStream(DataConfig(256, 8, 2)),
     lambda: Checkpointer(str(ROOT / "build" / "no-ckpt")),
+    *(lambda name=name: importlib.import_module(
+        f"repro_torch.examples.{name}").main([]) for name in EXAMPLES),
 ], ids=["Engine", "VirtualMemory", "make_pool", "make_index", "build_model",
         "SequenceCache", "make_sharded_pool", "RegionManager",
         "launch.serve", "creamtop.demo", "make_trainer", "launch.train",
-        "make_softecc", "SyntheticStream", "Checkpointer"])
+        "make_softecc", "SyntheticStream", "Checkpointer",
+        *(f"examples.{name}" for name in EXAMPLES)])
 def test_entry_points_without_cuda_raise(entry, monkeypatch):
     """No device and no CUDA: raise, never fall back to the CPU, and turn
     no telemetry plane on (a plane left on would change every later

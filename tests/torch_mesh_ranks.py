@@ -169,6 +169,65 @@ def mesh_pool_rank(rank: int, world: int, store: str, spec_path: str,
     leave_group(out, rank)
 
 
+def shard_functions_sequence(pool, spec: dict, record) -> None:
+    """CREAM-Shard's module functions (``repro_torch.shard.write_any`` /
+    ``read_any`` / ``read_any_status`` / ``read_any_writeback``): write on
+    a copy (duplicates and a valid mask) -> reads -> planted flips ->
+    status read -> write-back read -> status read. ``record(name, value)``
+    gets each read, each pool, whether the pool is a ``PoolLike`` and
+    whether the write and the write-back read left their input intact."""
+    from repro_torch import shard
+    from repro_torch.core.pool import PoolLike
+    record("poollike", np.asarray([isinstance(pool, PoolLike)]))
+    before = pool.storage.clone()
+    new = shard.write_any(pool, spec["ids"], common.to_words(spec["data"]),
+                          valid=spec["valid"])
+    record("input_kept", np.asarray([torch.equal(pool.storage, before)]))
+    pool = new
+    record("write", pool)
+    all_ids = spec["all_ids"]
+    record("read", shard.read_any(pool, all_ids))
+    record("read_status", shard.read_any_status(pool, all_ids))
+    flip(pool, spec["flips"])
+    record("flipped_status", shard.read_any_status(pool, all_ids))
+    record("flipped", pool)
+    data, status, new = shard.read_any_writeback(pool, all_ids)
+    record("writeback", (data, status))
+    record("flipped_kept", pool)
+    record("after_writeback", new)
+    record("clean_status", shard.read_any_status(new, all_ids))
+
+
+def shard_functions_rank(rank: int, world: int, store: str,
+                         spec_paths: list, out: str) -> None:
+    """One bank of a ``world``-bank mesh pool through
+    :func:`shard_functions_sequence`, once per spec; every record to
+    ``out/r<rank>_<case>_<name>_<i>.npy``."""
+    from repro_torch.core.layouts import Layout
+    from repro_torch.launch.mesh import make_banks_mesh
+    from repro_torch.shard import ShardedPool, make_sharded_pool
+    join_group(rank, world, store)
+    out = Path(out)
+    mesh = make_banks_mesh(world)
+    for case, spec_path in enumerate(spec_paths):
+        spec = dict(np.load(spec_path))
+        pool = make_sharded_pool(
+            int(spec["rows"]), Layout(str(spec["layout"])),
+            int(spec["boundary"]), num_shards=world,
+            row_words=int(spec["W"]), mesh=mesh,
+            daec_rows=int(spec["daec"]), device="cpu")
+
+        def record(name, value, case=case):
+            if isinstance(value, ShardedPool):
+                value = value.storage[0]
+            vals = value if isinstance(value, tuple) else (value,)
+            for i, v in enumerate(vals):
+                np.save(out / f"r{rank}_{case}_{name}_{i}.npy", _np(v))
+
+        shard_functions_sequence(pool, spec, record)
+    leave_group(out, rank)
+
+
 @contextlib.contextmanager
 def lens_on():
     """CREAM-Lens on for the body, off and emptied after it."""
