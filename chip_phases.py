@@ -8,10 +8,10 @@ Usage (from the repository root, on a machine with one NVIDIA GPU)::
 Builds the kernels and turns TF32 off as ``chip_smoke.main`` does, then
 runs each named phase and prints its JSON line, and last the card's name
 and power limit. Phases: ``serve-olmoe``, ``olmoe-reference``,
-``decode-xlstm``, ``families-smoke``, ``surface``, ``steps``: the serve
-requests on qwen3-0.6b and on starcoder2-7b in cream mode, each with a
-full-batch decode profile over 32 steps (host-clock step, device time,
-launches),
+``decode-xlstm``, ``families-smoke``, ``surface``, ``widths``,
+``steps``: the serve requests on qwen3-0.6b and on starcoder2-7b in
+cream mode, each with a full-batch decode profile over 32 steps
+(host-clock step, device time, launches),
 ``roofline``: the serve requests on qwen3-0.6b and on olmoe-1b-7b in
 cream mode, each with a counted full-batch decode profile, then
 ``chip_smoke.py``'s roofline phase on them, and ``mesh``: CREAM-Shard's
@@ -98,6 +98,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     common.library()
+    rate = cs.int_rate(torch)            # the bounds' rates, as main sets
+    cs.INT_OPS_S, cs.FP32_FLOPS_S = rate["int_ops_s"], rate["fp32_flops_s"]
+    cs.BF16_FLOPS_S = rate["bf16_flops_s"]
     cs.emit(dict(phase="build", root=str(root),
                  seconds=time.perf_counter() - t0))
     for name in args.phases:

@@ -307,6 +307,27 @@ exits nonzero:
                   a CPU run of the same example made in a subprocess
                   during the phase (clock numbers and train_lm's losses
                   masked).
+ 39. widths       (run after phase 23) pools whose row width W is not a
+                  multiple of 8, where the pool kernels take their word
+                  paths (the `_words` C entries): (a) each of them
+                  (mixed read, its routed and shard-local forms, hash,
+                  migrate, scrub, InterWrap gather and scatter) and the
+                  SECDED / DAEC codecs at W = 7, 12 and 60 bit-exact
+                  against its plain version on CPU copies, with SECDED
+                  flips in 1 % of the beats (statuses 0, 1 and 2 seen),
+                  on storage one row into its buffer (off a 16-byte
+                  boundary at W = 7, as a caller's row view may be);
+                  (b) pools of the four layouts at boundary R/2 with and
+                  without a 32-row DAEC tier, a whole-InterWrap pool, two
+                  4-bank pools and a VM repartitioned mid-run (extra pages
+                  migrated) and back, at W = 7 and 60: write -> flips ->
+                  status read -> migrate -> scrub -> status read, every
+                  result equal to the CPU's bit for bit; (c) every kernel
+                  wrapper and every sharded-pool read and migration at n =
+                  0: the CPU's shapes and dtypes, no launch; (d) each word
+                  path timed (median of 20 behind the device sleep) on
+                  4096 pages of a ~1 GiB pool at W = 60 and 7 beside its
+                  byte bound.
 
 Phase 2 also holds parity8_write, the PARITY pool's one-pass write,
 bit-exact against its plain version and against the eager chain it
@@ -347,7 +368,7 @@ clock), torch.matmul of the clean A beside it.
 
 Then the card's name and power limit, one JSON line listing every kernel
 with its launches on the serve, serve-shard, cache, campaign, regions,
-writeback, launch-serve, starcoder2, musicgen, olmoe, xlstm,
+writeback, widths, launch-serve, starcoder2, musicgen, olmoe, xlstm,
 families-smoke, prefill-long, seqcache, ecc-mlp, telemetry, softecc,
 train, train-lm, mesh and surface phases (the mesh's summed over its
 ranks) and
@@ -3949,6 +3970,483 @@ def phase_writeback(torch, np) -> tuple[dict, dict]:
                 adopted=reports[DEVICE]), dict(merged)
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: widths — pools whose row width is not a multiple of 8
+# ---------------------------------------------------------------------------
+
+WIDTHS_CHECK = (7, 12, 60)    # (a): each word path against its plain version
+WIDTHS_POOL = (7, 60)         # (b): pools, a sharded pool, a VM: card vs CPU
+WIDTH_ROWS = 256              # rows of the (a) and (b) pools
+WIDTH_DAEC = 32               # (b)'s DAEC tier
+WIDTH_FLIPS = 0.01            # share of SECDED beats given a planted flip
+WIDTH_TIME_BYTES = 1 << 30    # (d): storage of the timed pool
+WIDTH_TIME_PAGES = 4096       # (d): pages (rows for the scrub) a timed call
+WIDTH_SHARDS = 4
+
+
+def plant_width_flips(np, rng, sto, rows) -> None:
+    """Flip, in place, WIDTH_FLIPS of the SECDED beats of ``rows`` of the
+    (N, 9, W) words ``sto`` (at least 3): single data bits (status 1),
+    single code bits (2) and, every tenth, two bits of one word (3)."""
+    W = sto.shape[2]
+    rows = np.asarray(rows)
+    beats = 4 * W * rows.size
+    for i, beat in enumerate(rng.choice(beats, max(3, int(WIDTH_FLIPS
+                                                          * beats)),
+                                        replace=False)):
+        row, b = int(rows[beat // (4 * W)]), int(beat % (4 * W))
+        bit = int(rng.integers(0, 32))
+        f = 2 * b + int(rng.integers(0, 2))       # a word of the beat
+        if i % 10 == 9:
+            sto[row, f // W, f % W] ^= np.uint32((1 << bit)
+                                                  | (1 << ((bit + 7) % 32)))
+        elif i % 2:
+            sto[row, 8, b // 4] ^= np.uint32(1 << (8 * (b % 4) + bit % 8))
+        else:
+            sto[row, f // W, f % W] ^= np.uint32(1 << bit)
+
+
+def width_storage(np, rng, rows: int, W: int, boundary: int):
+    """(rows, 9, W) seeded uint32 words whose rows [boundary, rows) carry
+    SECDED codes of their data lanes, with flips planted."""
+    from repro_torch.core import secded
+    from repro_torch.kernels import common
+    sto = rng.integers(0, 2**32, (rows, 9, W), dtype=np.uint32)
+    data = sto[boundary:, :8].reshape(rows - boundary, 8 * W)
+    sto[boundary:, 8] = common.to_u32(secded.encode_block(
+        common.to_words(data)))
+    plant_width_flips(np, rng, sto, range(boundary, rows))
+    return sto
+
+
+def row_view(torch, t):
+    """``t`` copied to the card as a view one pool row (9W words) into a
+    buffer one row longer. A row is 36W bytes, so at W = 7 the view, and
+    each of its banks and row ranges, starts off a 16-byte boundary, as a
+    caller's view of a pool's rows may (``scrub_secded`` from any start)."""
+    row = 9 * t.shape[-1]
+    buf = torch.empty(row + t.numel(), dtype=t.dtype, device=DEVICE)
+    view = buf[row:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def width_kernels(torch, np, W: int) -> dict:
+    """(a) at width W: every pool kernel's word path on the card, bit-exact
+    against its plain version on CPU copies of the same inputs, and the
+    SECDED codecs at (N, 8W). The card's storage is a view one row into
+    its buffer (:func:`row_view`). Returns each kernel's max_abs_err and
+    the statuses the reads and the scrub saw."""
+    from repro_torch.core.layouts import Layout, extra_page_count, total_pages
+    from repro_torch.kernels import common
+    from repro_torch.kernels.daec import ops as daec_ops
+    from repro_torch.kernels.daec import ref as daec_ref
+    from repro_torch.kernels.hash import ops as hash_ops
+    from repro_torch.kernels.hash import ref as hash_ref
+    from repro_torch.kernels.interwrap import ops as interwrap_ops
+    from repro_torch.kernels.interwrap import ref as interwrap_ref
+    from repro_torch.kernels.migrate import ops as migrate_ops
+    from repro_torch.kernels.migrate import ref as migrate_ref
+    from repro_torch.kernels.mixed import ops as mixed_ops
+    from repro_torch.kernels.mixed import ref as mixed_ref
+    from repro_torch.kernels.scrub import ops as scrub_ops
+    from repro_torch.kernels.scrub import ref as scrub_ref
+    from repro_torch.kernels.secded import ops as secded_ops
+    from repro_torch.kernels.secded import ref as secded_ref
+    from repro_torch.objcache import hash_index as hix
+
+    rng = np.random.default_rng(SEED + 60 + W)
+    R, half, S = WIDTH_ROWS, WIDTH_ROWS // 2, WIDTH_SHARDS
+    cpu = common.to_words(width_storage(np, rng, R, W, half))
+    card = row_view(torch, cpu)
+    banks = common.to_words(np.stack([
+        width_storage(np, rng, R // S, W, half // S) for _ in range(S)]))
+    bcard = row_view(torch, banks)
+    check(W % 4 == 0 or (card.data_ptr() % 16 and bcard[1].data_ptr() % 16
+                         and card[half:].data_ptr() % 16),
+          f"W={W}: the storage views are 16-byte aligned")
+    errs, statuses = {}, set()
+
+    def hold(name, got, want, status=False):
+        got = tuple(g.cpu() for g in (got if isinstance(got, tuple)
+                                      else (got,)))
+        errs[name] = max(errs.get(name, 0), max_abs_err(got, want))
+        if status:
+            statuses.update(got[-1].unique().tolist())
+
+    def ids(n, k=None):
+        p = rng.permutation(n)[:k]
+        return torch.as_tensor(p, dtype=torch.int32)
+
+    for layout in (Layout.INTERWRAP, Layout.PACKED):
+        p = ids(total_pages(layout, half, W) + R - half)
+        hold("mixed_read_correct",
+             mixed_ops.read_correct(card, p.to(DEVICE), layout, R, half,
+                                    status=True),
+             mixed_ref.read_correct(cpu, p, layout, R, half, status=True),
+             status=True)
+        g = ids(R + S * extra_page_count(layout, half // S, W))
+        hold("mixed_read_correct_routed",
+             mixed_ops.read_correct_routed(bcard, g.to(DEVICE), layout, R,
+                                           half, S, status=True),
+             mixed_ref.read_correct_routed(banks, g, layout, R, half, S,
+                                           status=True), status=True)
+        for s in range(S):
+            hold("mixed_read_correct_routed_local",
+                 mixed_ops.read_correct_routed_local(
+                     bcard[s], g.to(DEVICE), layout, R, half, S, s,
+                     status=True),
+                 mixed_ref.read_correct_routed_local(
+                     banks[s], g, layout, R, half, S, s, status=True))
+    # the get of a filled index on the boundary-R/2 pool (1/4 absent keys)
+    index = hix.make_index(4 * R, CACHE_PROBE, device="cpu")
+    keys = rng.choice(2**31, R + R // 4, replace=False)
+    index, _, _ = hix.insert(
+        index, torch.as_tensor(keys[:R], dtype=torch.int32),
+        torch.as_tensor(rng.integers(0, total_pages(Layout.INTERWRAP, half,
+                                                    W) + R - half, R),
+                        dtype=torch.int32),
+        torch.zeros(R, dtype=torch.int32),
+        torch.full((R,), 8 * W, dtype=torch.int32))
+    q = torch.as_tensor(rng.permutation(keys), dtype=torch.int32)
+    hold("hash_lookup_read",
+         hash_ops.lookup_read(card, index.key.to(DEVICE),
+                              index.page.to(DEVICE), q.to(DEVICE),
+                              Layout.INTERWRAP, R, half, CACHE_PROBE),
+         hash_ref.lookup_read(cpu, index.key, index.page, q,
+                              Layout.INTERWRAP, R, half, CACHE_PROBE))
+    # the same words as a whole-InterWrap pool: gather, re-encode, scatter
+    p = ids(total_pages(Layout.INTERWRAP, R, W))
+    hold("migrate_gather_encode",
+         migrate_ops.gather_encode(card, p.to(DEVICE), R),
+         migrate_ref.gather_encode(cpu, p, R))
+    hold("interwrap_gather", interwrap_ops.gather(card, p.to(DEVICE), R),
+         interwrap_ref.gather(cpu, p, R))
+    data = common.to_words(rng.integers(0, 2**32, (p.numel(), 8 * W),
+                                        dtype=np.uint32))
+    hold("interwrap_scatter",
+         interwrap_ops.scatter(row_view(torch, cpu), p.to(DEVICE),
+                               data.to(DEVICE), R),
+         interwrap_ref.scatter(cpu.clone(), p, data, R))
+    hold("scrub_rows", scrub_ops.scrub_rows(card[half:]),
+         scrub_ref.scrub_rows(cpu[half:].contiguous()), status=True)
+    # the codecs on pages of 8W words: any W already
+    data = common.to_words(rng.integers(0, 2**32, (64, 8 * W),
+                                        dtype=np.uint32))
+    for name, ops, ref in (("secded", secded_ops, secded_ref),
+                           ("daec", daec_ops, daec_ref)):
+        codes = ref.encode(data)
+        hold(name + "_encode", ops.encode(data.to(DEVICE)), codes)
+        bad, bad_codes = plant_flips(data, codes, rng, n_each=4)
+        hold(name + "_decode", ops.decode(bad.to(DEVICE),
+                                          bad_codes.to(DEVICE)),
+             ref.decode(bad, bad_codes))
+    check(not any(errs.values()), f"W={W}: word paths disagree: {errs}")
+    check({0, 1, 2} <= statuses, f"W={W}: statuses {sorted(statuses)}")
+    return dict(max_abs_err=errs, statuses=sorted(statuses))
+
+
+def width_pool_run(torch, np, W: int, device) -> tuple[list, dict]:
+    """(b) at width W on ``device``: the seeded sequence write -> flips ->
+    status read -> migrate -> scrub -> status read on pools of the four
+    layouts at boundary R/2 (with and without a DAEC tier), a whole-
+    InterWrap pool and two 4-bank pools, then a VM whose InterWrap pool
+    is repartitioned mid-run (mapped extra pages migrated) and back ->
+    (every result as CPU tensors and dicts, the repartition reports)."""
+    from repro_torch.core.layouts import Layout
+    from repro_torch.core.pool import make_pool
+    from repro_torch.core.protection import Protection
+    from repro_torch.kernels import common
+    from repro_torch.shard import make_sharded_pool
+    from repro_torch.vm.address_space import VirtualMemory
+    from repro_torch.vm.migration import MigrationEngine
+
+    rng = np.random.default_rng(SEED + 70 + W)
+    R, half = WIDTH_ROWS, WIDTH_ROWS // 2
+    pools = [make_pool(R, layout, half, row_words=W, daec_rows=d,
+                       device=device)
+             for layout in (Layout.INTERWRAP, Layout.PACKED,
+                            Layout.RANK_SUBSET, Layout.BASELINE_ECC)
+             for d in (0, WIDTH_DAEC)]
+    pools += [make_pool(R, Layout.INTERWRAP, row_words=W, device=device),
+              make_sharded_pool(R, Layout.INTERWRAP, half,
+                                num_shards=WIDTH_SHARDS, row_words=W,
+                                device=device),
+              make_sharded_pool(R, Layout.PACKED, half,
+                                num_shards=WIDTH_SHARDS, row_words=W,
+                                daec_rows=WIDTH_DAEC, device=device)]
+    out = []
+    for p in pools:
+        n = p.num_pages
+        ids = rng.permutation(n)
+        p = p.write(ids, rng.integers(0, 2**32, (n, p.page_words),
+                                      dtype=np.uint32))
+        sto = common.to_u32(p.storage)
+        flat = sto.reshape(-1, 9, W)
+        per_bank = flat.shape[0] // (sto.shape[0] if sto.ndim == 4 else 1)
+        b_local = p.boundary * per_bank // p.num_rows
+        prot = [r for r in range(flat.shape[0]) if r % per_bank >= b_local]
+        if prot:
+            plant_width_flips(np, rng, flat, prot)
+        p.storage.copy_(common.to_words(sto).to(device))
+        out += [t.cpu() for t in p.read(ids, status=True)]
+        p = p.migrate(ids[:16], ids[16:32])
+        p, stats = p.scrub()
+        out += [vars(stats), *(t.cpu() for t in p.read(ids, status=True)),
+                p.storage.cpu()]
+    vm = VirtualMemory(row_words=W, device=device)
+    vm.add_pool("kv", R, Layout.INTERWRAP)
+    vm.add_pool("ecc", 64, Layout.BASELINE_ECC)
+    vm.create_tenant("loose", Protection.NONE)
+    vm.create_tenant("strict", Protection.SECDED)
+    vl = vm.alloc("loose", vm.pools["kv"].num_pages)
+    vs = vm.alloc("strict", 32)
+    for tenant, v in (("loose", vl), ("strict", vs)):
+        vm.write(tenant, v, rng.integers(0, 2**32, (len(v), 8 * W),
+                                         dtype=np.uint32))
+    vm.free("loose", vl[:24])
+    live = vl[24:]
+    infos = []
+    for nb in (half, R):                 # shrink mid-run, then grow back
+        out += [vm.read("loose", live).cpu(), vm.read("strict", vs).cpu()]
+        infos.append(MigrationEngine(vm).repartition_with_migration("kv",
+                                                                    nb))
+        live = [v for v in live if v in vm.tenants["loose"].entries]
+        vm.write("loose", live[:8], rng.integers(
+            0, 2**32, (8, 8 * W), dtype=np.uint32))
+    out += [vm.read("loose", live).cpu(), vm.read("strict", vs).cpu(),
+            *(vm.pools[k].storage.cpu() for k in ("kv", "ecc"))]
+    return out + infos, dict(migrated=[i["migrated"] for i in infos])
+
+
+def same_results(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(a, b))
+
+
+def width_empty(torch, np) -> dict:
+    """(c) n = 0: every kernel wrapper and every sharded-pool read and
+    migration on the card gives the CPU's shapes and dtypes, and nothing
+    is launched."""
+    from repro_torch.core.layouts import Layout
+    from repro_torch.kernels import common
+    from repro_torch.kernels.daec import ops as daec_ops
+    from repro_torch.kernels.hash import ops as hash_ops
+    from repro_torch.kernels.interwrap import ops as interwrap_ops
+    from repro_torch.kernels.migrate import ops as migrate_ops
+    from repro_torch.kernels.mixed import ops as mixed_ops
+    from repro_torch.kernels.parity8 import ops as parity8_ops
+    from repro_torch.kernels.scrub import ops as scrub_ops
+    from repro_torch.kernels.secded import ops as secded_ops
+    from repro_torch.shard import make_sharded_pool
+    from repro_torch.shard import pool as shard_pool
+    R, W = 32, 7
+    calls = {
+        "mixed_read_correct": lambda d: mixed_ops.read_correct(
+            d(R, 9, W), d(0), Layout.PACKED, R, 16, status=True),
+        "mixed_read_correct_routed": lambda d: mixed_ops.read_correct_routed(
+            d(4, R // 4, 9, W), d(0), Layout.INTERWRAP, R, 16, 4,
+            status=True),
+        "mixed_read_correct_routed_local":
+            lambda d: mixed_ops.read_correct_routed_local(
+                d(R // 4, 9, W), d(0), Layout.INTERWRAP, R, 16, 4, 1,
+                status=True),
+        "migrate_gather_encode": lambda d: migrate_ops.gather_encode(
+            d(R, 9, W), d(0), R),
+        "scrub_rows": lambda d: scrub_ops.scrub_rows(d(0, 9, W)),
+        "hash_lookup_read": lambda d: hash_ops.lookup_read(
+            d(R, 9, W), d(64), d(64), d(0), Layout.PACKED, R, 16, 8),
+        "interwrap_gather": lambda d: interwrap_ops.gather(d(R, 9, W), d(0),
+                                                           R),
+        "interwrap_scatter": lambda d: interwrap_ops.scatter(
+            d(R, 9, W), d(0), d(0, 8 * W), R),
+        "parity8_encode": lambda d: parity8_ops.encode(d(0, 64)),
+        "parity8_check": lambda d: parity8_ops.check(d(0, 64), d(0, 1)),
+        "parity8_write": lambda d: parity8_ops.write(d(R, 9, 8), d(0),
+                                                     d(0, 64), 16),
+        "secded_encode": lambda d: secded_ops.encode(d(0, 8 * W)),
+        "secded_decode": lambda d: secded_ops.decode(d(0, 8 * W), d(0, W)),
+        "daec_encode": lambda d: daec_ops.encode(d(0, 8 * W)),
+        "daec_decode": lambda d: daec_ops.decode(d(0, 8 * W), d(0, W)),
+    }
+    for S in (1, WIDTH_SHARDS):
+        for daec in (0, 2 * S):
+            def pool(dev, S=S, daec=daec):
+                return make_sharded_pool(64, Layout.INTERWRAP, 32,
+                                         num_shards=S, row_words=W,
+                                         daec_rows=daec, device=dev)
+            key = f"shard{S}{'-daec' if daec else ''}"
+            calls[key + ".read"] = lambda d, pool=pool: pool(d.dev).read([])
+            calls[key + ".read_status"] = \
+                lambda d, pool=pool: pool(d.dev).read([], status=True)
+            calls[key + ".read_any"] = \
+                lambda d, pool=pool: shard_pool.read_any(pool(d.dev), [])
+            calls[key + ".read_any_status"] = \
+                lambda d, pool=pool: shard_pool.read_any_status(
+                    pool(d.dev), [])
+            calls[key + ".migrate"] = \
+                lambda d, pool=pool: pool(d.dev).migrate([], []).storage
+
+    def maker(dev):
+        def make(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+        make.dev = dev
+        return make
+
+    shapes = {}
+    common.LAUNCHES.clear()
+    for name, call in calls.items():
+        got, want = call(maker(DEVICE)), call(maker("cpu"))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        check([(tuple(g.shape), g.dtype, g.device.type) for g in got]
+              == [(tuple(w.shape), w.dtype, torch.device(DEVICE).type)
+                  for w in want],
+              f"n = 0: {name} on the card differs from the CPU")
+        shapes[name] = [list(w.shape) for w in want]
+    torch.cuda.synchronize()
+    check(not common.LAUNCHES, f"n = 0 launched {dict(common.LAUNCHES)}")
+    return dict(calls=len(shapes), shapes=shapes)
+
+
+def width_times(torch, np, W: int) -> dict:
+    """(d) at width W: each word path timed (median of 20 calls behind the
+    device sleep) on WIDTH_TIME_PAGES pages of a pool of about
+    WIDTH_TIME_BYTES whose every row carries SECDED codes, each beside its
+    byte bound (and the SECDED decode's and encode's operations)."""
+    from repro_torch.core.layouts import Layout, extra_page_count, total_pages
+    from repro_torch.kernels.hash import ops as hash_ops
+    from repro_torch.kernels.hash import ref as hash_ref
+    from repro_torch.kernels.interwrap import ops as interwrap_ops
+    from repro_torch.kernels.migrate import ops as migrate_ops
+    from repro_torch.kernels.mixed import ops as mixed_ops
+    from repro_torch.kernels.scrub import ops as scrub_ops
+    from repro_torch.kernels.secded import ops as secded_ops
+    from repro_torch.objcache import hash_index as hix
+
+    S, n, D = WIDTH_SHARDS, WIDTH_TIME_PAGES, 8 * W
+    R = WIDTH_TIME_BYTES // (36 * W) // (8 * S) * (8 * S)
+    half = R // 2
+    rng = np.random.default_rng(SEED + 80 + W)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 80 + W)
+    sto = torch.randint(-2**31, 2**31, (R, 9, W), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    chunk = 1 << 16
+    for a in range(0, R, chunk):
+        b = min(R, a + chunk)
+        sto[a:b, 8] = secded_ops.encode(
+            sto[a:b, :8].reshape(b - a, D).contiguous())
+
+    def pages(total: int, distinct: bool = False):
+        p = rng.choice(total, n, replace=False) if distinct \
+            else rng.integers(0, total, n)
+        return torch.as_tensor(p, dtype=torch.int32, device=DEVICE)
+
+    def read_bound(ids, boundary: int, rows: int, extra: int = 0) -> tuple:
+        """Each distinct page (and a SECDED page's codes) read once, every
+        page written once, the ids and ``extra`` words read; the SECDED
+        pages' beats decoded."""
+        u = torch.unique(ids)
+        sec = int(((u >= boundary) & (u < rows)).sum())
+        return bound_ms(4 * ((u.numel() + n) * D + n + sec * W + extra),
+                        48 * sec * D // 2)
+
+    out = dict(rows=R, storage_bytes=R * 9 * W * 4)
+    ids = pages(total_pages(Layout.INTERWRAP, half, W) + R - half)
+    out["mixed_read_correct"] = dict(
+        ms=median_ms(lambda: mixed_ops.read_correct(
+            sto, ids, Layout.INTERWRAP, R, half), 20),
+        bound=read_bound(ids, half, R))
+    banks = sto.view(S, R // S, 9, W)
+    g = pages(R + S * extra_page_count(Layout.INTERWRAP, half // S, W))
+    out["mixed_read_correct_routed"] = dict(
+        ms=median_ms(lambda: mixed_ops.read_correct_routed(
+            banks, g, Layout.INTERWRAP, R, half, S), 20),
+        bound=read_bound(g, half, R))
+    from repro_torch.shard import router
+    shard, local = router.route(g.long(), R, S)
+    own = torch.unique(local[shard == 0])
+    sec = int(((own >= half // S) & (own < R // S)).sum())
+    out["mixed_read_correct_routed_local"] = dict(
+        ms=median_ms(lambda: mixed_ops.read_correct_routed_local(
+            banks[0], g, Layout.INTERWRAP, R, half, S, 0), 20),
+        bound=bound_ms(4 * ((own.numel() + n) * D + n + sec * W),
+                       48 * sec * D // 2))
+    index = hix.make_index(2 * n, CACHE_PROBE, device=DEVICE)
+    keys = torch.as_tensor(rng.choice(2**31, n, replace=False),
+                           dtype=torch.int32, device=DEVICE)
+    index, _, _ = hix.insert(index, keys, ids, torch.zeros_like(keys),
+                             torch.full_like(keys, D))
+    q = keys[torch.as_tensor(rng.permutation(n), device=DEVICE)]
+    hit = hash_ref.resolve_pages(index.key, index.page, q, CACHE_PROBE)
+    out["hash_lookup_read"] = dict(     # and each query's probe window
+        ms=median_ms(lambda: hash_ops.lookup_read(
+            sto, index.key, index.page, q, Layout.INTERWRAP, R, half,
+            CACHE_PROBE), 20),
+        bound=read_bound(hit, half, R, extra=n * CACHE_PROBE))
+    iw = pages(total_pages(Layout.INTERWRAP, R, W), distinct=True)
+    out["migrate_gather_encode"] = dict(
+        ms=median_ms(lambda: migrate_ops.gather_encode(sto, iw, R), 20),
+        bound=bound_ms(4 * (2 * n * D + n * W + n), 40 * n * D // 2))
+    out["interwrap_gather"] = dict(
+        ms=median_ms(lambda: interwrap_ops.gather(sto, iw, R), 20),
+        bound=bound_ms(4 * (2 * n * D + n), 0))
+    data = torch.randint(-2**31, 2**31, (n, D), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    out["interwrap_scatter"] = dict(
+        ms=median_ms(lambda: interwrap_ops.scatter(sto, iw, data, R), 20),
+        bound=bound_ms(4 * (2 * n * D + n), 0))
+    rows = sto[half:half + n]
+    out["scrub_rows"] = dict(
+        ms=median_ms(lambda: scrub_ops.scrub_rows(rows), 20),
+        bound=bound_ms(4 * (2 * n * 9 * W + n * D // 2), 48 * n * D // 2))
+    for r in out.values():
+        if isinstance(r, dict):
+            r["bound_ms"], r["bound_by"] = r.pop("bound")[:2]
+    del sto, banks, rows, data, index
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_widths(torch, np) -> tuple[dict, dict]:
+    """Pools of row widths that are not a multiple of 8, on the card: (a)
+    each pool kernel's word path bit-exact against its plain version at W
+    = 7, 12 and 60, with SECDED flips in 1 % of the beats; (b) pools,
+    4-bank pools and a VM through a mid-run repartition, card equal to the
+    CPU bit for bit at W = 7 and 60; (c) every wrapper and sharded-pool
+    read and migration at n = 0 with the CPU's shapes and no launch; (d)
+    each word path timed beside its byte bound on a ~1 GiB pool at W = 60
+    and 7. (b)'s launches are the phase's; the others' are checks'."""
+    from repro_torch.kernels import common
+    out = {}
+    with uncounted():
+        out["kernels"] = {W: width_kernels(torch, np, W)
+                          for W in WIDTHS_CHECK}
+    launches, runs = {}, {}
+    for W in WIDTHS_POOL:
+        common.LAUNCHES.clear()
+        card, info = width_pool_run(torch, np, W, DEVICE)
+        torch.cuda.synchronize()
+        for k, v in common.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        cpu, _ = width_pool_run(torch, np, W, "cpu")
+        check(same_results(torch, card, cpu),
+              f"W={W}: the card's pools differ from the CPU's")
+        check(info["migrated"][0] > 0, f"W={W}: the VM migrated no page")
+        runs[W] = dict(results=len(card), **info)
+    for k in ("mixed_read_correct_routed", "migrate_gather_encode",
+              "interwrap_gather", "interwrap_scatter", "scrub_rows",
+              "secded_decode", "daec_decode"):
+        check(launches.get(k, 0) > 0, f"widths: no {k} launch")
+    out["pools"] = dict(rows=WIDTH_ROWS, daec_rows=WIDTH_DAEC, runs=runs,
+                        launches=launches)
+    with uncounted():
+        out["empty"] = width_empty(torch, np)
+        out["times"] = {W: width_times(torch, np, W) for W in (60, 7)}
+    return out, launches
+
+
 LAUNCH_ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--secded-rows", "24"]
 #: keys of the launcher's JSON that are times (not compared across devices)
 LAUNCH_TIMES = {"wall_s", "tokens_per_s", "p50_latency_ms", "p99_latency_ms"}
@@ -5690,6 +6188,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     wb, l_wb = phase_writeback(torch, np)
     phase("writeback", wb)
+    widths, l_wd = phase_widths(torch, np)
+    phase("widths", widths)
+    torch.cuda.empty_cache()
     launch, l_ls = phase_launch_serve(torch)
     phase("launch-serve", launch)
     sc2, l_sc2 = phase_serve_starcoder2(torch, np)
@@ -5726,9 +6227,9 @@ def main() -> int:
     phase("roofline", phase_roofline(torch, np, prof_c,
                                      olmoe["profile"]))
     main_paths = [l_c, l_s, l_r, l_tm, l_ss, *l_z.values(), *l_w.values(),
-                  l_d, l_a, l_cs, l_cd, l_rg, l_wb, l_ls, *l_sc2, l_mg,
-                  *l_ol, l_xl, l_fs, l_pl, *l_sq, l_em, l_se, l_tr, l_lm,
-                  l_ms, l_sf]
+                  l_d, l_a, l_cs, l_cd, l_rg, l_wb, l_wd, l_ls, *l_sc2,
+                  l_mg, *l_ol, l_xl, l_fs, l_pl, *l_sq, l_em, l_se, l_tr,
+                  l_lm, l_ms, l_sf]
     # a PARITY pool's write is one parity8_write; the standalone encode
     # keeps the TPU kernel's contract and is on no main path
     check(not any(l.get("parity8_encode") for l in main_paths),

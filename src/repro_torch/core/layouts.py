@@ -318,7 +318,10 @@ def parity_coords(num_rows: int, boundary: int, pages,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Parity-table lookup for PARITY-layout CREAM/extra pages:
     ``(prow (n,), off (n,))`` — the code-lane row holding each page's packed
-    parity entry and the word offset of its ``row_words // 8``-word slot."""
+    parity entry and the word offset of its ``row_words // 8``-word slot.
+    PARITY pools only: a slot holds a page's parity bytes four to a word,
+    whole only at W % 8 == 0, where the parity codec refuses other widths
+    as the reference does (:mod:`repro_torch.kernels.parity8`)."""
     pages = _ids(pages)
     rel = torch.where(pages >= num_rows, boundary + (pages - num_rows), pages)
     tables = math.ceil(boundary / 8) if boundary else 0

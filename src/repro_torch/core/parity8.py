@@ -45,7 +45,15 @@ def encode_lines(data: torch.Tensor) -> torch.Tensor:
 def check_lines(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
     """Per-line status (..., k) int32: LINE_OK or LINE_CORRUPT (detection
     only — no repair) of (..., 16k) words against stored parity bytes."""
-    bad = (encode_lines(data) ^ (parity & 0xFF)) != 0
+    lines = encode_lines(data)
+    try:
+        torch.broadcast_shapes(lines.shape, parity.shape)
+    except RuntimeError:
+        # the reference's XOR of the two refuses them with a TypeError
+        raise TypeError(f"incompatible shapes for the parity check: "
+                        f"{tuple(lines.shape)} and {tuple(parity.shape)}"
+                        ) from None
+    bad = (lines ^ (parity & 0xFF)) != 0
     return bad.to(torch.int32)
 
 

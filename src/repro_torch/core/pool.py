@@ -297,8 +297,6 @@ def make_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
         raise ValueError(
             f"daec_rows ({daec_rows}) must fit the protected region "
             f"[{boundary}, {num_rows})")
-    if row_words % 8:
-        raise ValueError("row_words must be a multiple of 8")
     storage = torch.zeros((num_rows, LANES, row_words), dtype=torch.int32,
                           device=resolve_device(device))
     return PoolState(storage, boundary, layout, row_words, daec_rows)
@@ -450,7 +448,7 @@ def _decoded_read(state: PoolState, pages):
                 None)
     rows, lanes, region = page_coords(state.layout, state.num_rows,
                                       state.boundary, pages, state.row_words)
-    data = state.storage[rows, lanes, :].reshape(n, -1)
+    data = state.storage[rows, lanes, :].reshape(n, state.page_words)
     is_sec = region == REGION_SECDED
     status = torch.zeros((n,), dtype=torch.int32, device=state.device)
     fcodes = None

@@ -21,7 +21,14 @@
 // the mixed read's copy loop on it: page_slice (coords.cuh), two 16-byte
 // loads and stores per 8 words, correct_group for SECDED pages. The hash is
 // uint32 arithmetic, which wraps on the card as the reference's does.
+//
+// Word path (the `_words` entry, for W % 8 != 0): one block per query
+// (its first warp probes as above), whose threads then walk the page's W
+// groups of 8 words, each fetched slice by slice (groups.cuh load_group),
+// corrected against its code word on a SECDED page and stored as two
+// vectors.
 #include "coords.cuh"
+#include "groups.cuh"
 #include "secded.cuh"
 
 using namespace repro_torch;
@@ -34,14 +41,12 @@ __device__ __forceinline__ uint32_t hash_u32(uint32_t k) {
   return k ^ (k >> 16);
 }
 
-__global__ void hash_lookup_read_kernel(
-    const int32_t* __restrict__ storage, const uint32_t* __restrict__ keys,
-    const int32_t* __restrict__ slot_pages,
-    const uint32_t* __restrict__ queries, int32_t* __restrict__ out, int W,
-    int capacity, int probe, int interwrap, int num_rows, int boundary,
-    int ebase) {
-  __shared__ int s_page;
-  const int i = blockIdx.x, k = blockIdx.y;
+// The probe of query i by the block's first warp: the matched slot's page
+// (0 for an absent key) in *s_page; the caller syncs the block after it.
+__device__ __forceinline__ void probe_page(
+    const uint32_t* __restrict__ keys, const int32_t* __restrict__ slot_pages,
+    const uint32_t* __restrict__ queries, int i, int capacity, int probe,
+    int* s_page) {
   if (threadIdx.x < 32) {
     const uint32_t q = queries[i];
     const uint32_t cap = static_cast<uint32_t>(capacity);
@@ -56,8 +61,19 @@ __global__ void hash_lookup_read_kernel(
         break;
       }
     }
-    if (threadIdx.x == 0) s_page = slot >= 0 ? slot_pages[slot] : 0;
+    if (threadIdx.x == 0) *s_page = slot >= 0 ? slot_pages[slot] : 0;
   }
+}
+
+__global__ void hash_lookup_read_kernel(
+    const int32_t* __restrict__ storage, const uint32_t* __restrict__ keys,
+    const int32_t* __restrict__ slot_pages,
+    const uint32_t* __restrict__ queries, int32_t* __restrict__ out, int W,
+    int capacity, int probe, int interwrap, int num_rows, int boundary,
+    int ebase) {
+  __shared__ int s_page;
+  const int i = blockIdx.x, k = blockIdx.y;
+  probe_page(keys, slot_pages, queries, i, capacity, probe, &s_page);
   __syncthreads();
   const int page = s_page;
   int row, lane;
@@ -80,7 +96,51 @@ __global__ void hash_lookup_read_kernel(
   }
 }
 
+__global__ void hash_lookup_read_words_kernel(
+    const int32_t* __restrict__ storage, const uint32_t* __restrict__ keys,
+    const int32_t* __restrict__ slot_pages,
+    const uint32_t* __restrict__ queries, int32_t* __restrict__ out, int W,
+    int capacity, int probe, int interwrap, int num_rows, int boundary,
+    int ebase) {
+  __shared__ int s_page;
+  const int i = blockIdx.x;
+  probe_page(keys, slot_pages, queries, i, capacity, probe, &s_page);
+  __syncthreads();
+  const int page = s_page;
+  const PageGeom g{W, interwrap, num_rows, boundary, ebase};
+  const bool sec = page >= boundary && page < num_rows;
+  uint4* dst = reinterpret_cast<uint4*>(out + static_cast<size_t>(i) * 8 * W);
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    uint4 a, b;
+    load_group(storage, g, page, j, a, b);
+    if (sec)
+      correct_group(a, b, static_cast<uint32_t>(
+          storage[(static_cast<size_t>(page) * 9 + 8) * W + j]));
+    dst[2 * j] = a;
+    dst[2 * j + 1] = b;
+  }
+}
+
 }  // namespace
+
+// The word path's entry, for W % 8 != 0: the arguments of
+// hash_lookup_read. Blocks are whole warps (the probe takes the first).
+extern "C" int hash_lookup_read_words(const void* storage, const void* keys,
+                                      const void* slot_pages,
+                                      const void* queries, void* out, int n,
+                                      int W, int capacity, int probe,
+                                      int interwrap, int num_rows,
+                                      int boundary, int ebase, void* stream) {
+  const int threads = W < 256 ? ceil_div(W, 32) * 32 : 256;
+  hash_lookup_read_words_kernel<<<n, threads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(storage),
+      static_cast<const uint32_t*>(keys),
+      static_cast<const int32_t*>(slot_pages),
+      static_cast<const uint32_t*>(queries), static_cast<int32_t*>(out), W,
+      capacity, probe, interwrap, num_rows, boundary, ebase);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int hash_lookup_read(const void* storage, const void* keys,
                                 const void* slot_pages, const void* queries,

@@ -15,6 +15,14 @@
 // group's 4 beats in registers into the one packed code word that covers
 // it — every W-word slice owns an exact W/8-word range of the page's code
 // plane, so slices need no shared state and the data is read once.
+//
+// Word path (the `_words` entry, for W % 8 != 0, where a slice owns no
+// whole range of code words): one thread per (page, group) of the batch,
+// in a grid-stride loop over the n * W groups. The thread fetches group j
+// of its page slice by slice under the same translation (groups.cuh
+// load_group with every row wrap-striped), stores it as two vectors and
+// encodes it into code word j.
+#include "groups.cuh"
 #include "secded.cuh"
 
 using namespace repro_torch;
@@ -46,7 +54,40 @@ __global__ void migrate_gather_encode_kernel(
   }
 }
 
+__global__ void migrate_gather_encode_words_kernel(
+    const int32_t* __restrict__ storage, const int32_t* __restrict__ pages,
+    int32_t* __restrict__ data, uint32_t* __restrict__ codes, int n, int W,
+    int num_rows) {
+  const PageGeom g = whole_interwrap(W, num_rows);
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n * W;
+       t += gridDim.x * blockDim.x) {
+    const int i = t / W, j = t - i * W;
+    uint4 a, b;
+    load_group(storage, g, pages[i], j, a, b);
+    uint4* dst =
+        reinterpret_cast<uint4*>(data + static_cast<size_t>(i) * 8 * W) +
+        2 * j;
+    dst[0] = a;
+    dst[1] = b;
+    codes[t] = encode_group(a, b);
+  }
+}
+
 }  // namespace
+
+// The word path's entry, for W % 8 != 0: the arguments of
+// migrate_gather_encode.
+extern "C" int migrate_gather_encode_words(const void* storage,
+                                           const void* pages, void* data,
+                                           void* codes, int n, int W,
+                                           int num_rows, void* stream) {
+  migrate_gather_encode_words_kernel<<<group_blocks(n * W), kGroupThreads,
+                                       0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(storage), static_cast<const int32_t*>(pages),
+      static_cast<int32_t*>(data), static_cast<uint32_t*>(codes), n, W,
+      num_rows);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int migrate_gather_encode(const void* storage, const void* pages,
                                      void* data, void* codes, int n, int W,

@@ -31,7 +31,17 @@
 // writes the page's worst with one atomicMax. The eight slice blocks of a
 // page race on its word, so the caller zeroes `status` before the launch.
 // The template keeps the status-free launch the kernel it was.
+//
+// Word path (the `_words` entries, for W % 8 != 0, where a slice holds no
+// whole number of code groups): one thread per (page, group) of the
+// batch, in a grid-stride loop over the n * W groups. The thread routes
+// and translates its page as above, fetches the group's 8 words slice by
+// slice (groups.cuh load_group), corrects a SECDED page's group against
+// its code word (a SECDED page's data is its row's first 8W words, so code
+// word j covers group j at any W), and stores the group as two vectors.
+// A page's status is the atomicMax of its groups' nonzero statuses.
 #include "coords.cuh"
+#include "groups.cuh"
 #include "secded.cuh"
 
 using namespace repro_torch;
@@ -165,7 +175,103 @@ __global__ void mixed_read_routed_kernel(const int32_t* __restrict__ storage,
   copy_slice<kStatus>(src, code, dst, sec, W, status, i);
 }
 
+// The word path of all three reads. The local read is the routed read
+// of one bank (num_shards 1 routes every id to itself).
+template <bool kStatus, bool kLocal>
+__global__ void mixed_read_words_kernel(const int32_t* __restrict__ storage,
+                                        const int32_t* __restrict__ pages,
+                                        int32_t* __restrict__ out,
+                                        int32_t* __restrict__ status, int n,
+                                        int W, int interwrap, int num_rows,
+                                        int num_shards, int boundary_local,
+                                        int ebase, int shard_id) {
+  const int rows_local = num_rows / num_shards;
+  const PageGeom g{W, interwrap, rows_local, boundary_local, ebase};
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n * W;
+       t += gridDim.x * blockDim.x) {
+    const int i = t / W, j = t - i * W;
+    const int page = pages[i];
+    const bool is_extra = page >= num_rows;
+    const int e = page - num_rows;
+    const int shard = min(
+        max(is_extra ? e % num_shards : page % num_shards, 0), num_shards - 1);
+    const int local = is_extra ? rows_local + e / num_shards
+                               : page / num_shards;
+    uint4* dst = reinterpret_cast<uint4*>(out + static_cast<size_t>(i) * 8 * W)
+                 + 2 * j;
+    if (kLocal && shard != shard_id) {
+      dst[0] = dst[1] = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const int32_t* bank =
+        kLocal ? storage
+               : storage + static_cast<size_t>(shard) * rows_local * 9 * W;
+    uint4 a, b;
+    load_group(bank, g, local, j, a, b);
+    if (local >= boundary_local && local < rows_local) {
+      const uint32_t code = static_cast<uint32_t>(
+          bank[(static_cast<size_t>(local) * 9 + 8) * W + j]);
+      const int worst = correct_group(a, b, code);
+      if (kStatus && worst) atomicMax(status + i, worst);
+    }
+    dst[0] = a;
+    dst[1] = b;
+  }
+}
+
+template <bool kLocal>
+int launch_words(const void* storage, const void* pages, void* out,
+                 void* status, int n, int W, int interwrap, int num_rows,
+                 int num_shards, int boundary_local, int ebase, int shard_id,
+                 void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* st = static_cast<const int32_t*>(storage);
+  const auto* pg = static_cast<const int32_t*>(pages);
+  auto* o = static_cast<int32_t*>(out);
+  auto* stat = static_cast<int32_t*>(status);
+  const int blocks = group_blocks(n * W);
+  if (stat)
+    mixed_read_words_kernel<true, kLocal><<<blocks, kGroupThreads, 0, s>>>(
+        st, pg, o, stat, n, W, interwrap, num_rows, num_shards,
+        boundary_local, ebase, shard_id);
+  else
+    mixed_read_words_kernel<false, kLocal><<<blocks, kGroupThreads, 0, s>>>(
+        st, pg, o, nullptr, n, W, interwrap, num_rows, num_shards,
+        boundary_local, ebase, shard_id);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The word path's entries, for W % 8 != 0: the arguments of the entries
+// below of the same stem.
+extern "C" int mixed_read_correct_words(const void* storage,
+                                        const void* pages, void* out,
+                                        void* status, int n, int W,
+                                        int interwrap, int num_rows,
+                                        int boundary, int ebase,
+                                        void* stream) {
+  return launch_words<false>(storage, pages, out, status, n, W, interwrap,
+                             num_rows, 1, boundary, ebase, 0, stream);
+}
+
+extern "C" int mixed_read_correct_routed_words(
+    const void* storage, const void* pages, void* out, void* status, int n,
+    int W, int interwrap, int num_rows, int num_shards, int boundary_local,
+    int ebase, void* stream) {
+  return launch_words<false>(storage, pages, out, status, n, W, interwrap,
+                             num_rows, num_shards, boundary_local, ebase, 0,
+                             stream);
+}
+
+extern "C" int mixed_read_correct_routed_local_words(
+    const void* bank, const void* pages, void* out, void* status, int n,
+    int W, int interwrap, int num_rows, int num_shards, int boundary_local,
+    int ebase, int shard_id, void* stream) {
+  return launch_words<true>(bank, pages, out, status, n, W, interwrap,
+                            num_rows, num_shards, boundary_local, ebase,
+                            shard_id, stream);
+}
 
 // `status` may be null (no status output); else n zeroed int32 words.
 extern "C" int mixed_read_correct_routed(const void* storage,

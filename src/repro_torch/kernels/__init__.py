@@ -22,7 +22,15 @@ Ported (with their TPU originals in ``repro/kernels/``):
   ecc_matmul  SECDED decode-on-load bf16 A @ B, float32  csrc/ecc_matmul.cu
 
 Shared device code: ``csrc/secded.cuh`` (Hsiao tables, in-register
-correct) and ``csrc/coords.cuh`` (page -> (row, lane) of one slice).
+correct), ``csrc/coords.cuh`` (page -> (row, lane) of one slice) and
+``csrc/groups.cuh`` (a page's groups of 8 words fetched slice by slice).
+
+Row widths: every pool kernel takes any W. At ``W % 8 == 0`` it launches
+its vector entry (16-byte loads of whole 8-word groups of a slice), else
+its word-granular ``<entry>_words``, counted under the same name
+(``common.launch_for_width``). parity8 keeps the reference's PARITY rule
+(its blocks hold a multiple of 4 lines). An empty batch returns empty
+results on both devices and launches nothing.
 
 Every Pallas kernel of the reference has its counterpart here.
 """

@@ -88,6 +88,12 @@ def to_u32(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy().view(np.uint32)
 
 
+def empty_words(like: torch.Tensor, *shape: int) -> torch.Tensor:
+    """An uninitialised int32 tensor of ``shape`` on ``like``'s device:
+    the wrappers' outputs, and their empty results at n = 0."""
+    return torch.empty(shape, dtype=torch.int32, device=like.device)
+
+
 def lsr(x: torch.Tensor, s: int) -> torch.Tensor:
     """Logical right shift of int32 words by a static amount."""
     if s == 0:
@@ -136,7 +142,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("secded.cu", "mixed.cu", "migrate.cu", "parity8.cu", "hash.cu",
            "scrub.cu", "daec.cu", "interwrap.cu", "flash_attention.cu",
            "ecc_matmul.cu")
-HEADERS = ("secded.cuh", "coords.cuh")
+HEADERS = ("secded.cuh", "coords.cuh", "groups.cuh")
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -187,6 +193,13 @@ ENTRIES = {
     "ecc_matmul_tiled": (_P, _P, _P, _P, _I, _I, _I, _P),
     "ecc_matmul_decode": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
+#: The pool kernels' word-granular entries, for row widths W % 8 != 0:
+#: the same arguments as the vector entry of the same stem.
+WORD_ENTRIES = ("mixed_read_correct", "mixed_read_correct_routed",
+                "mixed_read_correct_routed_local", "migrate_gather_encode",
+                "hash_lookup_read", "scrub_rows", "interwrap_gather",
+                "interwrap_scatter")
+ENTRIES.update({f"{name}_words": ENTRIES[name] for name in WORD_ENTRIES})
 
 
 def _nvcc() -> str:
@@ -266,6 +279,17 @@ def launch(name: str, *args, counts_as: str | None = None) -> None:
     LAUNCHES[counts_as or name] += 1
 
 
+def launch_for_width(name: str, W: int, *args) -> None:
+    """Launch a pool kernel at row width ``W``: its vector entry ``name``
+    (16-byte loads of whole 8-word groups of a slice) when ``W % 8 ==
+    0``, else its word-granular entry ``name + "_words"``, counted under
+    ``name`` either way. The two take the same arguments."""
+    if W % 8:
+        launch(name + "_words", *args, counts_as=name)
+    else:
+        launch(name, *args)
+
+
 def check_contiguous(name: str, *tensors: torch.Tensor) -> None:
     """Kernel operands must be contiguous on every device. The wrappers
     check before they dispatch, so a strided view that the kernel would
@@ -276,18 +300,33 @@ def check_contiguous(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def check_cuda_words(name: str, *tensors: torch.Tensor) -> None:
-    """Validate kernel operands: int32, contiguous, one CUDA device,
-    16-byte aligned (the kernels move words with 16-byte vector loads)."""
+def check_cuda_words(name: str, *tensors: torch.Tensor,
+                     W: int | None = None) -> None:
+    """Validate kernel operands: one CUDA device, then
+    :func:`check_words`."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: operands must share one CUDA device")
+    check_words(name, *tensors, W=W)
+
+
+def check_words(name: str, *tensors: torch.Tensor,
+                W: int | None = None) -> None:
+    """Kernel operands must be int32, contiguous, indexable with int32 and,
+    where the kernel moves them with 16-byte vectors, 16-byte aligned.
+    Every operand of a vector entry is moved so. A pool kernel at row
+    width ``W % 8 != 0`` runs its word entry, which reads its operands
+    word by word and stores vectors only into the fresh outputs its
+    wrapper allocates: there a view of a pool at any row offset (a bank,
+    the rows a scrub sweeps) is a valid operand."""
+    vectors = W is None or W % 8 == 0
+    for t in tensors:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: expected int32 words, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        if t.data_ptr() % 16:
+        if vectors and t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
         if t.numel() >= 2**31:
             raise ValueError(f"{name}: operand too large for int32 indexing")

@@ -23,12 +23,13 @@ def encode(data: torch.Tensor,
     """(N, D) int32 words -> (N, D//8) packed DAEC code fields."""
     n, d = _check(data)
     common.check_contiguous("daec_encode", data)
+    if n == 0:
+        return common.empty_words(data, 0, d // 8)
     if data.device.type == "cpu":
         return ref.encode(data)
     common.check_cuda_words("daec_encode", data)
-    codes = torch.empty((n, d // 8), dtype=torch.int32, device=data.device)
-    if n:
-        common.launch("daec_encode", data, codes, n * d // 8)
+    codes = common.empty_words(data, n, d // 8)
+    common.launch("daec_encode", data, codes, n * d // 8)
     return codes
 
 
@@ -42,13 +43,15 @@ def decode(data: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"codes must be {(n, d // 8)}, got "
                          f"{tuple(codes.shape)}")
     common.check_contiguous("daec_decode", data, codes)
+    if n == 0:
+        return (torch.empty_like(data), torch.empty_like(codes),
+                common.empty_words(data, 0, d // 2))
     if data.device.type == "cpu" and codes.device.type == "cpu":
         return ref.decode(data, codes)
     common.check_cuda_words("daec_decode", data, codes)
     out = torch.empty_like(data)
     out_codes = torch.empty_like(codes)
-    status = torch.empty((n, d // 2), dtype=torch.int32, device=data.device)
-    if n:
-        common.launch("daec_decode", data, codes, out, out_codes, status,
-                      n * d // 8)
+    status = common.empty_words(data, n, d // 2)
+    common.launch("daec_decode", data, codes, out, out_codes, status,
+                  n * d // 8)
     return out, out_codes, status

@@ -1,7 +1,8 @@
 """Fused probe + gather read: the dispatching wrapper.
 
 A CPU pool takes the plain version (:mod:`.ref`); a CUDA pool launches the
-kernel in ``csrc/hash.cu`` or raises. There is no fallback.
+kernel in ``csrc/hash.cu`` (its vector or word-granular entry, by W) or
+raises. There is no fallback.
 """
 from __future__ import annotations
 
@@ -28,9 +29,9 @@ def lookup_read(storage: torch.Tensor, slot_keys: torch.Tensor,
     (n, 8W) page data of each key's slot (page 0 for an absent key),
     SECDED pages corrected."""
     if storage.dim() != 3 or storage.shape[1] != LANES \
-            or storage.shape[0] != num_rows or storage.shape[2] % 8:
-        raise ValueError(f"expected ({num_rows}, 9, W) storage with W % 8 "
-                         f"== 0, got {tuple(storage.shape)}")
+            or storage.shape[0] != num_rows:
+        raise ValueError(f"expected ({num_rows}, 9, W) storage, got "
+                         f"{tuple(storage.shape)}")
     capacity = slot_keys.shape[0]
     if slot_keys.dim() != 1 or slot_pages.shape != (capacity,) \
             or queries.dim() != 1:
@@ -39,19 +40,18 @@ def lookup_read(storage: torch.Tensor, slot_keys: torch.Tensor,
         raise ValueError(f"bad probe window {probe} for capacity {capacity}")
     operands = (storage, slot_keys, slot_pages, queries)
     common.check_contiguous("hash_lookup_read", *operands)
+    W, n = storage.shape[2], queries.shape[0]
+    if n == 0:
+        return common.empty_words(storage, 0, DATA_LANES * W)
     if all(t.device.type == "cpu" for t in operands):
         return ref.lookup_read(storage, slot_keys, slot_pages, queries,
                                layout, num_rows, boundary, probe)
-    common.check_cuda_words("hash_lookup_read", *operands)
-    W = storage.shape[2]
-    n = queries.shape[0]
-    out = torch.empty((n, DATA_LANES * W), dtype=torch.int32,
-                      device=storage.device)
-    if n:
-        common.launch("hash_lookup_read", storage, slot_keys, slot_pages,
-                      queries, out, n, W, capacity, probe,
-                      int(layout == Layout.INTERWRAP), num_rows, boundary,
-                      extra_base_row(layout, boundary, W))
+    common.check_cuda_words("hash_lookup_read", *operands, W=W)
+    out = common.empty_words(storage, n, DATA_LANES * W)
+    common.launch_for_width("hash_lookup_read", W, storage, slot_keys,
+                            slot_pages, queries, out, n, W, capacity, probe,
+                            int(layout == Layout.INTERWRAP), num_rows,
+                            boundary, extra_base_row(layout, boundary, W))
     return out
 
 

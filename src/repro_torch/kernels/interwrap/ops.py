@@ -1,7 +1,8 @@
 """InterWrap page gather / scatter: the dispatching wrappers.
 
 A CPU pool takes the plain version (:mod:`.ref`); a CUDA pool launches the
-kernels in ``csrc/interwrap.cu`` or raises. There is no fallback.
+kernels in ``csrc/interwrap.cu`` (the vector or word-granular entry, by W)
+or raises. There is no fallback.
 """
 from __future__ import annotations
 
@@ -15,9 +16,9 @@ from repro_torch.kernels.interwrap import ref
 def _check(name: str, storage: torch.Tensor, pages: torch.Tensor,
            num_rows: int) -> None:
     if storage.dim() != 3 or storage.shape[1] != LANES \
-            or storage.shape[0] != num_rows or storage.shape[2] % 8:
-        raise ValueError(f"{name}: expected ({num_rows}, 9, W) storage with "
-                         f"W % 8 == 0, got {tuple(storage.shape)}")
+            or storage.shape[0] != num_rows:
+        raise ValueError(f"{name}: expected ({num_rows}, 9, W) storage, "
+                         f"got {tuple(storage.shape)}")
     if pages.dim() != 1:
         raise ValueError(f"{name}: pages must be a 1-D id vector")
 
@@ -32,15 +33,16 @@ def gather(storage: torch.Tensor, pages: torch.Tensor,
     """
     _check("interwrap_gather", storage, pages, num_rows)
     common.check_contiguous("interwrap_gather", storage, pages)
+    n, W = pages.shape[0], storage.shape[2]
+    if n == 0:
+        return common.empty_words(storage, 0, DATA_LANES * W)
     if storage.device.type == "cpu" and pages.device.type == "cpu":
         return ref.gather(storage, pages, num_rows)
     pages = pages.to(torch.int32)
-    common.check_cuda_words("interwrap_gather", storage, pages)
-    n, W = pages.shape[0], storage.shape[2]
-    out = torch.empty((n, DATA_LANES * W), dtype=torch.int32,
-                      device=storage.device)
-    if n:
-        common.launch("interwrap_gather", storage, pages, out, n, W, num_rows)
+    common.check_cuda_words("interwrap_gather", storage, pages, W=W)
+    out = common.empty_words(storage, n, DATA_LANES * W)
+    common.launch_for_width("interwrap_gather", W, storage, pages, out, n, W,
+                            num_rows)
     return out
 
 
@@ -60,12 +62,14 @@ def scatter(storage: torch.Tensor, pages: torch.Tensor, data: torch.Tensor,
         raise ValueError(f"interwrap_scatter: data must be "
                          f"{(n, DATA_LANES * W)}, got {tuple(data.shape)}")
     common.check_contiguous("interwrap_scatter", storage, pages, data)
+    if n == 0:
+        return storage
     if storage.device.type == "cpu" and pages.device.type == "cpu" \
             and data.device.type == "cpu":
         return ref.scatter(storage, pages, data, num_rows)
     pages = pages.to(torch.int32)
-    common.check_cuda_words("interwrap_scatter", storage, pages, data)
-    if n:
-        common.launch("interwrap_scatter", storage, pages, data, n, W,
-                      num_rows)
+    common.check_cuda_words("interwrap_scatter", storage, pages, data,
+                            W=W)
+    common.launch_for_width("interwrap_scatter", W, storage, pages, data, n,
+                            W, num_rows)
     return storage

@@ -26,12 +26,14 @@ def gather(storage: torch.Tensor, pages: torch.Tensor,
            num_rows: int) -> torch.Tensor:
     """(R, 9, W), (n,) -> (n, 8W): read n wrap-striped pages."""
     rows, lanes = wrap_coords(pages, num_rows)
-    return storage[rows, lanes, :].reshape(pages.shape[0], -1)
+    return storage[rows, lanes, :].reshape(pages.shape[0],
+                                           8 * storage.shape[2])
 
 
 def scatter(storage: torch.Tensor, pages: torch.Tensor, data: torch.Tensor,
             num_rows: int) -> torch.Tensor:
     """Write n wrap-striped pages (n, 8W) into ``storage`` in place."""
     rows, lanes = wrap_coords(pages, num_rows)
-    storage[rows, lanes, :] = data.reshape(pages.shape[0], 8, -1)
+    storage[rows, lanes, :] = data.reshape(pages.shape[0], 8,
+                                           storage.shape[2])
     return storage

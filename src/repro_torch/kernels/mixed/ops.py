@@ -1,7 +1,10 @@
 """Fused mixed-pool reads: the dispatching wrappers.
 
 A CPU pool takes the plain version (:mod:`.ref`); a CUDA pool launches
-the kernel in ``csrc/mixed.cu`` or raises. There is no fallback.
+the kernel in ``csrc/mixed.cu`` or raises. There is no fallback. Any row
+width W runs: at ``W % 8 == 0`` the vector entry, else its word-granular
+entry (:func:`~repro_torch.kernels.common.launch_for_width`). An empty id
+vector returns empty results on both devices and launches nothing.
 """
 from __future__ import annotations
 
@@ -16,6 +19,13 @@ from repro_torch.kernels.mixed import ref
 
 if TYPE_CHECKING:      # core/ and objcache/ import the kernels
     from repro_torch.core.pool import PoolState
+
+
+def _empty(storage: torch.Tensor, W: int, status: bool):
+    """The result of a read of no pages: ``(0, 8W)`` data, and with
+    ``status`` a ``(0,)`` status, on the storage's device."""
+    data = common.empty_words(storage, 0, DATA_LANES * W)
+    return (data, common.empty_words(storage, 0)) if status else data
 
 
 def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
@@ -33,27 +43,27 @@ def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
     slice blocks combine their statuses with ``atomicMax``.
     """
     if storage.dim() != 3 or storage.shape[1] != LANES \
-            or storage.shape[0] != num_rows or storage.shape[2] % 8:
-        raise ValueError(f"expected ({num_rows}, 9, W) storage with W % 8 "
-                         f"== 0, got {tuple(storage.shape)}")
+            or storage.shape[0] != num_rows:
+        raise ValueError(f"expected ({num_rows}, 9, W) storage, got "
+                         f"{tuple(storage.shape)}")
     if pages.dim() != 1:
         raise ValueError("pages must be a 1-D id vector")
     common.check_contiguous("mixed_read_correct", storage, pages)
+    W, n = storage.shape[2], pages.shape[0]
+    if n == 0:
+        return _empty(storage, W, status)
     if storage.device.type == "cpu" and pages.device.type == "cpu":
         return ref.read_correct(storage, pages, layout, num_rows, boundary,
                                 status=status)
-    W = storage.shape[2]
     pages = pages.to(torch.int32)
-    common.check_cuda_words("mixed_read_correct", storage, pages)
-    n = pages.shape[0]
+    common.check_cuda_words("mixed_read_correct", storage, pages, W=W)
     out = torch.empty((n, DATA_LANES * W), dtype=torch.int32,
                       device=storage.device)
     st = torch.zeros((n,), dtype=torch.int32, device=storage.device) \
         if status else None
-    if n:
-        common.launch("mixed_read_correct", storage, pages, out, st, n, W,
-                      int(layout == Layout.INTERWRAP), num_rows, boundary,
-                      extra_base_row(layout, boundary, W))
+    common.launch_for_width("mixed_read_correct", W, storage, pages, out, st,
+                            n, W, int(layout == Layout.INTERWRAP), num_rows,
+                            boundary, extra_base_row(layout, boundary, W))
     return (out, st) if status else out
 
 
@@ -81,32 +91,32 @@ def read_correct_routed(storage: torch.Tensor, pages: torch.Tensor,
                                          status=status)
     S = num_shards
     if storage.dim() != 4 or storage.shape[0] != S \
-            or storage.shape[2] != LANES or S * storage.shape[1] != num_rows \
-            or storage.shape[3] % 8:
+            or storage.shape[2] != LANES or S * storage.shape[1] != num_rows:
         raise ValueError(f"expected ({S}, {num_rows // max(S, 1)}, 9, W) "
-                         f"storage with W % 8 == 0, got "
-                         f"{tuple(storage.shape)}")
+                         f"storage, got {tuple(storage.shape)}")
     if boundary % S:
         raise ValueError(f"boundary {boundary} must split over {S} banks")
     if pages.dim() != 1:
         raise ValueError("pages must be a 1-D id vector")
     common.check_contiguous("mixed_read_correct_routed", storage, pages)
+    W, n = storage.shape[3], pages.shape[0]
+    if n == 0:
+        return _empty(storage, W, status)
     if storage.device.type == "cpu" and pages.device.type == "cpu":
         return ref.read_correct_routed(storage, pages, layout, num_rows,
                                        boundary, S, status=status)
-    W = storage.shape[3]
     pages = pages.to(torch.int32)
-    common.check_cuda_words("mixed_read_correct_routed", storage, pages)
-    n = pages.shape[0]
+    common.check_cuda_words("mixed_read_correct_routed", storage, pages,
+                            W=W)
     out = torch.empty((n, DATA_LANES * W), dtype=torch.int32,
                       device=storage.device)
     st = torch.zeros((n,), dtype=torch.int32, device=storage.device) \
         if status else None
-    if n:
-        b_local = boundary // S
-        common.launch("mixed_read_correct_routed", storage, pages, out, st,
-                      n, W, int(layout == Layout.INTERWRAP), num_rows, S,
-                      b_local, extra_base_row(layout, b_local, W))
+    b_local = boundary // S
+    common.launch_for_width("mixed_read_correct_routed", W, storage, pages,
+                            out, st, n, W, int(layout == Layout.INTERWRAP),
+                            num_rows, S, b_local,
+                            extra_base_row(layout, b_local, W))
     return (out, st) if status else out
 
 
@@ -131,9 +141,9 @@ def read_correct_routed_local(bank: torch.Tensor, pages: torch.Tensor,
     """
     S = num_shards
     if bank.dim() != 3 or bank.shape[1] != LANES \
-            or S * bank.shape[0] != num_rows or bank.shape[2] % 8:
+            or S * bank.shape[0] != num_rows:
         raise ValueError(f"expected one ({num_rows // max(S, 1)}, 9, W) "
-                         f"bank with W % 8 == 0, got {tuple(bank.shape)}")
+                         f"bank, got {tuple(bank.shape)}")
     if boundary % S:
         raise ValueError(f"boundary {boundary} must split over {S} banks")
     if not 0 <= shard_id < S:
@@ -154,6 +164,8 @@ def read_correct_routed_local(bank: torch.Tensor, pages: torch.Tensor,
                           device=bank.device)
     data = out[:words].view(n, DATA_LANES * W)
     st = out[words:] if status else None
+    if n == 0:
+        return (data, st) if status else data
     if bank.device.type == "cpu" and pages.device.type == "cpu":
         got = ref.read_correct_routed_local(bank, pages, layout, num_rows,
                                             boundary, S, shard_id,
@@ -165,15 +177,18 @@ def read_correct_routed_local(bank: torch.Tensor, pages: torch.Tensor,
             data.copy_(got)
         return (data, st) if status else data
     pages = pages.to(torch.int32)
-    common.check_cuda_words("mixed_read_correct_routed_local", bank, pages,
-                            out)
+    common.check_cuda_words("mixed_read_correct_routed_local", out, bank,
+                            pages, W=W)
+    # both entries store vectors into ``out``, at any W
+    common.check_words("mixed_read_correct_routed_local", out)
     if status:
         st.zero_()
-    if n:
-        b_local = boundary // S
-        common.launch("mixed_read_correct_routed_local", bank, pages, data,
-                      st, n, W, int(layout == Layout.INTERWRAP), num_rows, S,
-                      b_local, extra_base_row(layout, b_local, W), shard_id)
+    b_local = boundary // S
+    common.launch_for_width("mixed_read_correct_routed_local", W, bank,
+                            pages, data, st, n, W,
+                            int(layout == Layout.INTERWRAP), num_rows, S,
+                            b_local, extra_base_row(layout, b_local, W),
+                            shard_id)
     return (data, st) if status else data
 
 

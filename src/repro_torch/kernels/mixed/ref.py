@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import secded
-from repro_torch.core.layouts import (CODE_LANE, REGION_SECDED, Layout,
-                                      page_coords)
+from repro_torch.core.layouts import (CODE_LANE, DATA_LANES, REGION_SECDED,
+                                      Layout, page_coords)
 
 
 def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
@@ -30,7 +30,7 @@ def read_correct(storage: torch.Tensor, pages: torch.Tensor, layout: Layout,
     n = pages.shape[0]
     rows, lanes, region = page_coords(layout, num_rows, boundary, pages,
                                       storage.shape[2])
-    data = storage[rows, lanes, :].reshape(n, -1)
+    data = storage[rows, lanes, :].reshape(n, DATA_LANES * storage.shape[2])
     if boundary >= num_rows:
         return (data, torch.zeros((n,), dtype=torch.int32,
                                   device=storage.device)) if status else data

@@ -3,6 +3,13 @@ wrappers.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel in ``csrc/parity8.cu`` or raises. There is no fallback.
+
+Widths: these keep the reference's PARITY rule on both devices. Parity
+bytes pack four to a word, so a block must hold a multiple of 4 lines (D
+% 64 == 0, a pool's W % 8 == 0). The reference's encode and pool write
+refuse other blocks with a ``ValueError``; its check of a block of whole
+lines (D % 16 == 0) fails on the shapes of its XOR with a ``TypeError``,
+and so does :func:`check` here.
 """
 from __future__ import annotations
 
@@ -26,12 +33,13 @@ def encode(data: torch.Tensor,
     """(N, D) int32 words -> (N, D//64) packed parity bytes."""
     n, d = _check(data)
     common.check_contiguous("parity8_encode", data)
+    if n == 0:
+        return common.empty_words(data, 0, d // 64)
     if data.device.type == "cpu":
         return ref.encode(data)
     common.check_cuda_words("parity8_encode", data)
-    parity = torch.empty((n, d // 64), dtype=torch.int32, device=data.device)
-    if n:
-        common.launch("parity8_encode", data, parity, n * d // 4)
+    parity = common.empty_words(data, n, d // 64)
+    common.launch("parity8_encode", data, parity, n * d // 4)
     return parity
 
 
@@ -39,17 +47,24 @@ def check(data: torch.Tensor, parity: torch.Tensor,
           *, use_kernel: bool | None = None) -> torch.Tensor:
     """(N, D), (N, D//64) -> per-line status (N, D//16) int32: 0 ok,
     1 corrupt."""
-    n, d = _check(data)
+    if data.dim() != 2 or data.shape[1] % 16:
+        raise ValueError(f"expected (N, D) words with D % 16 == 0, got "
+                         f"{tuple(data.shape)}")
+    n, d = data.shape
     if parity.shape != (n, d // 64):
         raise ValueError(f"parity must be {(n, d // 64)}, got "
                          f"{tuple(parity.shape)}")
+    if d % 64:
+        raise TypeError(f"incompatible shapes: {d // 16} line parities "
+                        f"against {4 * (d // 64)} packed ones")
     common.check_contiguous("parity8_check", data, parity)
+    if n == 0:
+        return common.empty_words(data, 0, d // 16)
     if data.device.type == "cpu" and parity.device.type == "cpu":
         return ref.check(data, parity)
     common.check_cuda_words("parity8_check", data, parity)
-    status = torch.empty((n, d // 16), dtype=torch.int32, device=data.device)
-    if n:
-        common.launch("parity8_check", data, parity, status, n * d // 4)
+    status = common.empty_words(data, n, d // 16)
+    common.launch("parity8_check", data, parity, status, n * d // 4)
     return status
 
 
@@ -80,6 +95,8 @@ def write(storage: torch.Tensor, pages: torch.Tensor, data: torch.Tensor,
         raise ValueError(f"parity8_write: data must be "
                          f"{(n, DATA_LANES * W)}, got {tuple(data.shape)}")
     common.check_contiguous("parity8_write", storage, pages, data)
+    if n == 0:
+        return storage
     if storage.device.type == "cpu" and pages.device.type == "cpu" \
             and data.device.type == "cpu":
         return ref.write(storage, pages, data, boundary)
@@ -87,8 +104,7 @@ def write(storage: torch.Tensor, pages: torch.Tensor, data: torch.Tensor,
     if pages.device != storage.device:
         raise ValueError("parity8_write: operands must share one CUDA device")
     pages = pages.to(torch.int64)
-    if n:
-        common.launch("parity8_write", storage, pages, data, n, W, num_rows,
-                      boundary, extra_base_row(Layout.PARITY, boundary, W),
-                      parity_table_rows(boundary, 0, W))
+    common.launch("parity8_write", storage, pages, data, n, W, num_rows,
+                  boundary, extra_base_row(Layout.PARITY, boundary, W),
+                  parity_table_rows(boundary, 0, W))
     return storage

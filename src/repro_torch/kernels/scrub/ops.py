@@ -1,7 +1,8 @@
 """Fused scrub sweep: the dispatching wrapper, plus the pool adapter.
 
 A CPU pool takes the plain version (:mod:`.ref`); a CUDA pool launches the
-kernel in ``csrc/scrub.cu`` or raises. There is no fallback.
+kernel in ``csrc/scrub.cu`` (its vector or word-granular entry, by W) or
+raises. There is no fallback.
 """
 from __future__ import annotations
 
@@ -17,20 +18,20 @@ def scrub_rows(storage: torch.Tensor,
                *, use_kernel: bool | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(R, 9, W) SECDED rows -> (corrected rows, per-beat status (R, 4W))."""
-    if storage.dim() != 3 or storage.shape[1] != LANES \
-            or storage.shape[2] % 8:
-        raise ValueError(f"expected (R, 9, W) rows with W % 8 == 0, got "
+    if storage.dim() != 3 or storage.shape[1] != LANES:
+        raise ValueError(f"expected (R, 9, W) rows, got "
                          f"{tuple(storage.shape)}")
     common.check_contiguous("scrub_rows", storage)
+    R, _, W = storage.shape
+    if R == 0:
+        return (torch.empty_like(storage),
+                common.empty_words(storage, 0, DATA_LANES * W // 2))
     if storage.device.type == "cpu":
         return ref.scrub_rows(storage)
-    common.check_cuda_words("scrub_rows", storage)
-    R, _, W = storage.shape
+    common.check_cuda_words("scrub_rows", storage, W=W)
     out = torch.empty_like(storage)
-    status = torch.empty((R, DATA_LANES * W // 2), dtype=torch.int32,
-                         device=storage.device)
-    if R:
-        common.launch("scrub_rows", storage, out, status, R * W, W)
+    status = common.empty_words(storage, R, DATA_LANES * W // 2)
+    common.launch_for_width("scrub_rows", W, storage, out, status, R * W, W)
     return out, status
 
 

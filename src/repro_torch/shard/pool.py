@@ -428,8 +428,6 @@ def make_sharded_pool(num_rows: int, layout: Layout = Layout.INTERWRAP,
         raise ValueError(
             f"daec_rows ({daec_rows}) must fit the protected region "
             f"[{boundary}, {num_rows})")
-    if row_words % 8:
-        raise ValueError("row_words must be a multiple of 8")
     device = resolve_device(device)
     banks = num_shards
     if mesh is not None:

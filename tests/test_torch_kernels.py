@@ -206,7 +206,7 @@ def test_wrappers_marshal_the_declared_c_arguments(name, monkeypatch):
     """With the device checks lifted, each wrapper calls its C entry with
     exactly the arguments ``ENTRIES`` declares (the stream comes last)."""
     seen = []
-    monkeypatch.setattr(common, "check_cuda_words", lambda *a: None)
+    monkeypatch.setattr(common, "check_cuda_words", lambda *a, **k: None)
     monkeypatch.setattr(common, "launch",
                         lambda entry, *args: seen.append((entry, args)))
     CALLS[name]()

@@ -790,7 +790,7 @@ def _meta_pool(layout: TLayout, boundary: int, daec: int = 0) -> PoolState:
 @pytest.fixture
 def stub_library(monkeypatch):
     lib = _Library()
-    monkeypatch.setattr(common, "check_cuda_words", lambda *a: None)
+    monkeypatch.setattr(common, "check_cuda_words", lambda *a, **k: None)
     monkeypatch.setattr(common, "library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: type("S", (), {"cuda_stream": 7})())

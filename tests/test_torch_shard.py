@@ -482,7 +482,7 @@ def test_routed_read_on_non_cpu_tensors_never_falls_back():
 def test_routed_read_marshals_the_declared_c_arguments(layout, status,
                                                        monkeypatch):
     seen = []
-    monkeypatch.setattr(common, "check_cuda_words", lambda *a: None)
+    monkeypatch.setattr(common, "check_cuda_words", lambda *a, **k: None)
     monkeypatch.setattr(common, "launch",
                         lambda entry, *args: seen.append((entry, args)))
     mixed_ops.read_correct_routed(_meta(4, 8, 9, 16), _meta(5), layout, 32,
