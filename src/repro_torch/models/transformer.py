@@ -41,9 +41,16 @@ same name on the same weights (``forward_fn`` and ``decode_step_fn`` are
 their earlier names). The tree functions place activations
 with :func:`repro_torch.distributed.sharding.constraint` where the
 reference does: identities with no mesh.
+
+With tracing on (:mod:`repro_torch.obs.tracing`), the layer loops of the
+paged path and of every full-sequence pass open ``model.attn`` over each
+attention layer's norm and block and ``model.mlp`` / ``model.moe`` (with
+the tokens it routes) over its mixer, and :meth:`Transformer._logits`
+opens ``model.head``; the functional tree path opens none.
 """
 from __future__ import annotations
 
+import contextlib
 from types import SimpleNamespace
 from typing import Any
 
@@ -58,6 +65,7 @@ from repro_torch.models import attention, moe, ssm, xlstm
 from repro_torch.models.common import (MLP, Embedding, RMSNorm, apply_embed,
                                       apply_mlp, cross_entropy, dense_init,
                                       rms_norm)
+from repro_torch.obs import tracing as obs_tracing
 
 Params = dict[str, Any]
 
@@ -133,6 +141,25 @@ def _mix(kind: MixerKind, norm2, p, cfg: ModelConfig, x: torch.Tensor):
         return x + apply_mlp(p, h), None
     y, aux = moe.apply_moe(p, cfg, h)
     return x + y, aux
+
+
+def _attn_span(blk: "Block", layer: int):
+    """``model.attn`` over an attention layer's norm and block; no span
+    over another block."""
+    if blk.kind != BlockKind.ATTN:
+        return contextlib.nullcontext()
+    return obs_tracing.span("model.attn", layer=layer)
+
+
+def _mix_span(blk: "Block", layer: int, x: torch.Tensor):
+    """``model.mlp`` or ``model.moe`` (with the tokens it routes) over a
+    layer's channel mixer; no span over a layer without one."""
+    if blk.mixer_kind == MixerKind.MLP:
+        return obs_tracing.span("model.mlp", layer=layer)
+    if blk.mixer_kind == MixerKind.MOE:
+        return obs_tracing.span("model.moe", layer=layer,
+                                tokens=x.shape[0] * x.shape[1])
+    return contextlib.nullcontext()
 
 
 def _store_state(pos: dict, kind: BlockKind, stage: int, st, s: int
@@ -225,10 +252,11 @@ class Transformer(nn.Module):
             for _ in range(cfg.num_stages) for bk, mk in cfg.pattern)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.final_norm(x)
-        if self.lm_head is None:
-            return x @ self.embed.table.T
-        return x @ self.lm_head
+        with obs_tracing.span("model.head"):
+            x = self.final_norm(x)
+            if self.lm_head is None:
+                return x @ self.embed.table.T
+            return x @ self.lm_head
 
     def _head(self, x: torch.Tensor, logits_mode: str) -> torch.Tensor:
         """Logits of every position (``"all"``) or of the last (``"last"``:
@@ -245,11 +273,13 @@ class Transformer(nn.Module):
         x = self.embed(tokens)
         aux = None
         for layer, blk in enumerate(self.layers):
-            y, st = _block_full(blk.kind, blk.block, cfg, blk.norm1(x),
-                                self.attn_impl, keep is not None)
+            with _attn_span(blk, layer):
+                y, st = _block_full(blk.kind, blk.block, cfg, blk.norm1(x),
+                                    self.attn_impl, keep is not None)
             if keep is not None:
                 keep(layer, st)
-            x, a = blk.mix(cfg, x + y)
+            with _mix_span(blk, layer, x):
+                x, a = blk.mix(cfg, x + y)
             aux = _add(aux, a)
         return x, aux
 
@@ -363,12 +393,14 @@ class Transformer(nn.Module):
         k_all, v_all = kv
         news_k, news_v = [], []
         for layer, blk in enumerate(self.layers):
-            y, (kn, vn) = attention.apply_attn_decode_paged(
-                blk.block, cfg, blk.norm1(x), (k_all[layer], v_all[layer]),
-                cache_len)
+            with obs_tracing.span("model.attn", layer=layer):
+                y, (kn, vn) = attention.apply_attn_decode_paged(
+                    blk.block, cfg, blk.norm1(x),
+                    (k_all[layer], v_all[layer]), cache_len)
             news_k.append(kn)
             news_v.append(vn)
-            x, _ = blk.mix(cfg, x + y)
+            with _mix_span(blk, layer, x):
+                x, _ = blk.mix(cfg, x + y)
         return (self._logits(x)[:, 0], {"cache_len": cache_len + 1},
                 (torch.stack(news_k), torch.stack(news_v)))
 

@@ -11,8 +11,15 @@ per-class count matrix and *folded* into the registry between steps:
     JSON exporter on the named hot paths (``Engine.step``
     gather/compute/scatter, the router dispatch, the sharded pool's
     dispatches and migration, ``repartition_with_migration``, scrub
-    sweeps, objcache batched get/set); blocking spans wait for their
-    device work with CUDA events;
+    sweeps, objcache batched get/set) and, beyond the reference's, at the
+    serving step's and the model's boundaries (``engine.poll``,
+    ``sched.tick``, ``engine.step`` and its ``.unpack`` / ``.model`` /
+    ``.insert`` / ``.readback``, ``engine.prefill.model`` / ``.pack`` /
+    ``.write``, ``model.attn`` / ``.mlp`` / ``.moe`` / ``.head``); every
+    span is stamped on the torch profiler's clock (``tracing.now_us``,
+    Unix time) and is a ``record_function`` range, so the profiler charges
+    the device operations launched inside it to it; blocking spans wait
+    for their device work with CUDA events, except under the profiler;
   * :mod:`.slo` + :mod:`.dashboard` — per-reliability-class SLO tracking
     (uncorrectable reads on SECDED frames must be 0; capacity reclaimed
     rides the boundary register) and a terminal snapshot dashboard

@@ -43,7 +43,6 @@ import contextlib
 import math
 import os
 import threading
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -54,6 +53,7 @@ from repro_torch.core.layouts import (CODE_LANE, DATA_LANES,
                                       REGION_SECDED, WRAP_LANES, WRAP_ROWS,
                                       Layout, extra_base_row)
 from repro_torch.obs import dram_sim
+from repro_torch.obs.tracing import now_us
 
 #: Capture cap: one record per engine dispatch, so this bounds *dispatches*,
 #: not pages. Overflow increments ``dropped`` (reported, never silent).
@@ -66,7 +66,7 @@ _LOCK = threading.Lock()
 class AccessRecord:
     """One captured data-plane dispatch (a batch gather or scatter)."""
     step: int
-    t_us: float                  # perf_counter_ns/1e3 — same clock as spans
+    t_us: float                  # tracing.now_us() — the spans' clock
     op: str                      # "gather" | "scatter"
     pages: np.ndarray            # (n,) page ids in the *pool's own* id space
     layout: Layout
@@ -102,7 +102,7 @@ class MemProfiler:
                 self.dropped += 1
                 return
             self.records.append(AccessRecord(
-                self.step, time.perf_counter_ns() / 1e3, op, arr, layout,
+                self.step, now_us(), op, arr, layout,
                 int(num_rows), int(boundary), int(row_words), pool, stream))
 
     def next_step(self) -> None:

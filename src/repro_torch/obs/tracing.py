@@ -11,6 +11,21 @@ Disabled (the default), :func:`span` returns a shared null context — one
 boolean read per call site, no allocation, no clock reads — so tracing can
 stay compiled into every hot path.
 
+**One clock.** Spans, :func:`instant` markers and CREAM-Lens's access
+records (:mod:`repro_torch.obs.memprof`) are stamped by :func:`now_us`:
+Unix time in microseconds, the clock of ``torch.profiler``'s Chrome trace,
+whose ``ts`` is Unix time less the trace's ``baseTimeNanoseconds``. A
+span's ``ts`` less ``baseTimeNanoseconds / 1e3`` falls within its profiler
+range. Checked by
+``tests/test_torch_tracing_profiler.py`` on the CPU (within 2 ms) and on
+the card by profiling a span around CUDA work with CUDA activity on and
+comparing the span's ``ts`` with its range's (under 1 ms).
+
+**Profiler ranges.** While tracing is on, each span also enters
+``torch.profiler.record_function(name)``: under the torch profiler it is a
+``user_annotation`` range of the same name, and every device operation
+launched inside it carries its correlation id.
+
 PyTorch queues work on the card and returns. The reference waits for a
 span's device work with ``jax.block_until_ready``; here :func:`blocked_span`
 and :func:`traced_call` record a ``torch.cuda.Event`` on the current stream
@@ -18,7 +33,10 @@ of each held CUDA tensor's device and close the span once those events
 have completed (CPU tensors are complete when they exist). A blocking span
 synchronises the host with the card: the spans split a step's time by
 phase, and a traced step is not the same step untraced. With tracing
-disabled nothing records an event and nothing synchronises.
+disabled nothing records an event and nothing synchronises, and while the
+torch profiler records (``torch.autograd._profiler_enabled()``) nothing
+does either: the profiler times the device work itself, and a step traced
+under it is the step untraced.
 """
 from __future__ import annotations
 
@@ -46,8 +64,19 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+def now_us() -> float:
+    """Microseconds on the trace's clock: Unix time, as the torch
+    profiler's Chrome trace stamps (before its ``baseTimeNanoseconds`` is
+    taken off)."""
+    return time.time_ns() / 1e3
+
+
+def _profiling() -> bool:
+    return torch.autograd._profiler_enabled()
+
+
 class _Span:
-    __slots__ = ("tracer", "name", "args", "t0")
+    __slots__ = ("tracer", "name", "args", "t0", "rf")
 
     def __init__(self, tracer: "Tracer", name: str, args: dict):
         self.tracer = tracer
@@ -57,11 +86,16 @@ class _Span:
     def __enter__(self):
         tl = self.tracer._tls
         tl.depth = getattr(tl, "depth", 0) + 1
-        self.t0 = time.perf_counter_ns()
+        # the clock is read inside the profiler range, which takes a while
+        # to open: the span then lies within its range
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.t0 = now_us()
         return self
 
     def __exit__(self, *exc):
-        dur_us = (time.perf_counter_ns() - self.t0) / 1e3
+        dur_us = now_us() - self.t0
+        self.rf.__exit__(None, None, None)
         tl = self.tracer._tls
         depth = getattr(tl, "depth", 1)
         tl.depth = depth - 1
@@ -69,7 +103,7 @@ class _Span:
         args["depth"] = depth - 1
         self.tracer._events.append({
             "name": self.name, "ph": "X", "cat": "cream",
-            "ts": self.t0 / 1e3, "dur": dur_us,
+            "ts": self.t0, "dur": dur_us,
             "pid": os.getpid(), "tid": threading.get_ident(),
             "args": args,
         })
@@ -95,7 +129,7 @@ class Tracer:
             return
         self._events.append({
             "name": name, "ph": "i", "cat": "cream", "s": "t",
-            "ts": time.perf_counter_ns() / 1e3,
+            "ts": now_us(),
             "pid": os.getpid(), "tid": threading.get_ident(),
             "args": args,
         })
@@ -185,15 +219,17 @@ def traced_call(name: str, fn, *args, **kwargs):
     ``<name>.dispatch`` covers the host's work up to the launches;
     ``<name>.block_until_ready`` covers the wait for the device work of
     the tensors ``fn`` returns. With tracing disabled this is a plain
-    call — no events, no waiting — so it is safe on hot paths.
+    call — no events, no waiting — so it is safe on hot paths; under the
+    torch profiler the second span waits for nothing.
     """
     if not TRACER.enabled:
         return fn(*args, **kwargs)
     with span(f"{name}.dispatch"):
         out = fn(*args, **kwargs)
     with span(f"{name}.block_until_ready"):
-        for ev in _events_for(out):
-            ev.synchronize()
+        if not _profiling():
+            for ev in _events_for(out):
+                ev.synchronize()
     return out
 
 
@@ -216,10 +252,15 @@ def blocked_span(name: str, **args):
     tensor's device; the span closes after those events have completed,
     so its duration covers device execution, not just the launches. When
     tracing is disabled the body still runs; ``hold`` is a no-op and
-    nothing waits.
+    nothing waits. Under the torch profiler the span is a plain one:
+    ``hold`` is a no-op and the profiler times the device work.
     """
     if not TRACER.enabled:
         yield _no_hold
+        return
+    if _profiling():
+        with span(name, **args):
+            yield _no_hold
         return
     with span(name, **args):
         events: list = []

@@ -37,8 +37,18 @@ Telemetry (:mod:`repro_torch.obs`), at the reference's places: the
 ``engine.step.gather`` / ``.compute`` (``.compute_ring`` beside a
 sharded pool's migration) / ``.scatter`` spans, ``engine.prefill``, the
 decode-step, prefill and tokens-by-tier counters, one CREAM-Lens step per
-decode step. With metrics on, the gather also yields each page's decode
-status — on a bare local pool from the mixed read's own launch
+decode step. Beyond the reference's: ``engine.poll`` around a poll (the
+scheduler's ``sched.tick`` inside it), ``engine.step`` around a step,
+``engine.step.unpack`` (pages to K and V), ``.model`` (the model step)
+and ``.insert`` (the write-back) inside ``.compute``,
+``engine.step.readback`` (the step's one wait for the card, the next
+tokens to the host), ``engine.prefill.model`` / ``.pack`` / ``.write``
+inside ``engine.prefill``; the model's ``model.attn`` / ``.mlp`` /
+``.moe`` per layer and ``model.head``. Spans are stamped on the torch
+profiler's clock (``obs.tracing.now_us``) and are its ranges; under the
+profiler the blocking ones wait for nothing. With metrics on, the gather
+also yields each page's decode status — on a bare local pool from the
+mixed read's own launch
 (:func:`_gather_pages_counts`) — reduced on the device to the per-class
 count matrix the registry folds after the step. With every plane off the
 step launches what it launches without them.
@@ -200,28 +210,32 @@ class Engine:
         B, L, maxB, bt = (self.max_batch, self.n_layers,
                           self.kv.max_blocks, self._bt)
         hkv, hd = cfg.num_kv_heads, cfg.head_dim_
-        pages = pages_i32.reshape(B, L, maxB, -1)
-        used, tail = pages[..., :kvw], pages[..., kvw:]
-        kvv = used.view(torch.float32).reshape(B, L, maxB, 2, bt, hkv, hd)
-        k = kvv[:, :, :, 0].permute(1, 0, 2, 3, 4, 5) \
-            .reshape(L, B, maxB * bt, hkv, hd)
-        v = kvv[:, :, :, 1].permute(1, 0, 2, 3, 4, 5) \
-            .reshape(L, B, maxB * bt, hkv, hd)
-        logits, _, (k_new, v_new) = self.model.decode_step_paged(
-            {"cache_len": lens}, toks, (k, v))
+        with obs_tracing.span("engine.step.unpack", pages=pages_i32.shape[0]):
+            pages = pages_i32.reshape(B, L, maxB, -1)
+            used, tail = pages[..., :kvw], pages[..., kvw:]
+            kvv = used.view(torch.float32).reshape(B, L, maxB, 2, bt, hkv,
+                                                   hd)
+            k = kvv[:, :, :, 0].permute(1, 0, 2, 3, 4, 5) \
+                .reshape(L, B, maxB * bt, hkv, hd)
+            v = kvv[:, :, :, 1].permute(1, 0, 2, 3, 4, 5) \
+                .reshape(L, B, maxB * bt, hkv, hd)
+        with obs_tracing.span("engine.step.model", batch=B):
+            logits, _, (k_new, v_new) = self.model.decode_step_paged(
+                {"cache_len": lens}, toks, (k, v))
         # write-back: insert the new token into each slot's current block
-        blk = lens.long() // bt
-        off = lens.long() - blk * bt
-        b_idx = torch.arange(B, device=self.device)
-        curr = kvv[b_idx, :, blk]                        # (B, L, 2, bt, h, d)
-        new_tok = torch.stack([k_new.permute(1, 0, 2, 3),
-                               v_new.permute(1, 0, 2, 3)], dim=2)
-        onehot = torch.arange(bt, device=self.device) == off[:, None]
-        curr = torch.where(onehot[:, None, None, :, None, None],
-                           new_tok[:, :, :, None], curr)
-        cur_used = curr.contiguous().view(torch.int32).reshape(B, L, kvw)
-        cur_tail = tail[b_idx, :, blk]                   # (B, L, tail)
-        cur_pages = torch.cat([cur_used, cur_tail], dim=-1)
+        with obs_tracing.span("engine.step.insert", pages=B * L):
+            blk = lens.long() // bt
+            off = lens.long() - blk * bt
+            b_idx = torch.arange(B, device=self.device)
+            curr = kvv[b_idx, :, blk]                    # (B, L, 2, bt, h, d)
+            new_tok = torch.stack([k_new.permute(1, 0, 2, 3),
+                                   v_new.permute(1, 0, 2, 3)], dim=2)
+            onehot = torch.arange(bt, device=self.device) == off[:, None]
+            curr = torch.where(onehot[:, None, None, :, None, None],
+                               new_tok[:, :, :, None], curr)
+            cur_used = curr.contiguous().view(torch.int32).reshape(B, L, kvw)
+            cur_tail = tail[b_idx, :, blk]               # (B, L, tail)
+            cur_pages = torch.cat([cur_used, cur_tail], dim=-1)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return logits, nxt, cur_pages.reshape(B * L, -1)
 
@@ -347,15 +361,18 @@ class Engine:
 
     def _do_prefill_impl(self, slot: int, req: ServeRequest, sess) -> None:
         toks = self._ids(np.asarray(req.prompt)[None, :])
-        logits, (ks, vs) = self.model.prefill(toks)
-        pages = self._pack_fn(ks[:, 0].float(), vs[:, 0].float())
         p = len(req.prompt)
+        with obs_tracing.span("engine.prefill.model", prompt=p):
+            logits, (ks, vs) = self.model.prefill(toks)
         nb = self.kv.blocks_for(p)
+        with obs_tracing.span("engine.prefill.pack", blocks=nb):
+            pages = self._pack_fn(ks[:, 0].float(), vs[:, 0].float())
         phys = self.kv.gather_phys(np.asarray([sess.row]))[0]   # (L, maxB)
         ids = phys[:, :nb].reshape(-1)
         data = pages.reshape(self.n_layers, self.kv.max_blocks, -1)[:, :nb] \
             .reshape(len(ids), -1)
-        self.vm.pools[self.pool_name] = self.pool.write(ids, data)
+        with obs_tracing.span("engine.prefill.write", pages=len(ids)):
+            self.vm.pools[self.pool_name] = self.pool.write(ids, data)
         sess.cache_len = p
         sess.last_tok = int(torch.argmax(logits[0, -1]))
         req.generated.append(sess.last_tok)
@@ -366,6 +383,10 @@ class Engine:
         """One decode step over every bound slot: one page gather, one
         model step (beside a queued migration), one page scatter. Returns
         requests that finished."""
+        with obs_tracing.span("engine.step"):
+            return self._step_impl()
+
+    def _step_impl(self) -> list[ServeRequest]:
         self.sched.ensure_step()
         if obs_memprof.enabled():
             obs_memprof.next_step()     # one profiler step per decode step
@@ -406,7 +427,8 @@ class Engine:
             self.vm.pools[self.pool_name] = self.pool.write(
                 cur_ids.reshape(-1), cur_pages)             # ONE scatter
             hold(self.pool.storage)
-        nxt = nxt.cpu().numpy()
+        with obs_tracing.span("engine.step.readback"):
+            nxt = nxt.cpu().numpy()
         self.steps += 1
         if counts is not None:
             obs_metrics.fold_read_status(counts)
@@ -436,23 +458,24 @@ class Engine:
     def poll(self) -> list[ServeRequest]:
         """One serving-loop iteration: an admission pass (prefilling the
         newly admitted sessions) followed by one batched decode step."""
-        admitted = self.sched.tick()
-        done: list[ServeRequest] = []
-        for adm in admitted:
-            if adm.is_prefill:
-                self._do_prefill(adm.slot, adm.req, adm.session)
-                if len(adm.req.generated) >= adm.req.max_new:
-                    done.append(self.sched.finish(adm.slot))
-            else:
-                self._lens[adm.slot] = adm.session.cache_len
-                self._toks[adm.slot] = adm.session.last_tok
-        if self.sched.active_slots():
-            done.extend(self.step())
-        elif not admitted and self.sched.waiting:
-            raise RuntimeError(
-                "deadlock: waiting requests cannot be admitted "
-                f"({self.sched.stats})")
-        return done
+        with obs_tracing.span("engine.poll"):
+            admitted = self.sched.tick()
+            done: list[ServeRequest] = []
+            for adm in admitted:
+                if adm.is_prefill:
+                    self._do_prefill(adm.slot, adm.req, adm.session)
+                    if len(adm.req.generated) >= adm.req.max_new:
+                        done.append(self.sched.finish(adm.slot))
+                else:
+                    self._lens[adm.slot] = adm.session.cache_len
+                    self._toks[adm.slot] = adm.session.last_tok
+            if self.sched.active_slots():
+                done.extend(self.step())
+            elif not admitted and self.sched.waiting:
+                raise RuntimeError(
+                    "deadlock: waiting requests cannot be admitted "
+                    f"({self.sched.stats})")
+            return done
 
     def serve(self, requests: list[ServeRequest]) -> dict:
         """Serve a request list to completion; returns the run's stats."""

@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.serve.paged_kv import PagedKV
 
 
@@ -115,6 +116,10 @@ class Scheduler:
         """One admission pass: bind as many waiting requests to free slots
         as device capacity allows. Returns the new bindings; the engine
         prefills the ``is_prefill`` ones."""
+        with obs_tracing.span("sched.tick", waiting=len(self.waiting)):
+            return self._tick()
+
+    def _tick(self) -> list[Admission]:
         self._clock += 1
         out: list[Admission] = []
         i = 0

@@ -15,8 +15,10 @@ reference's autouse reset of ``tests/test_obs.py``). Held equal:
   * a ``serve-test`` engine of each package served with every plane on
     (cream and secded mode, a PARITY pool, a DAEC tier, planted single and
     double flips): the ``collect()`` snapshots, the step's read-status
-    matrices, the span-name multisets and the SLO reports; a port engine
-    on a pool in banks against a reference engine on the same global
+    matrices, the span-name multisets restricted to the names the
+    reference emits (the port's other names exactly the step's and the
+    model's spans of ``tests/torch_spans.py``) and the SLO reports; a port
+    engine on a pool in banks against a reference engine on the same global
     geometry, with flips and a scheduled migration; the dashboard
     text of the same snapshot; ``creamtop --snapshot`` against the
     reference tool;
@@ -72,6 +74,10 @@ from repro_torch.serve import engine as tengine
 from repro_torch.tools import creamtop as tcreamtop
 from repro_torch.vm.address_space import VirtualMemory as TVM
 from repro_torch.vm.migration import MigrationEngine as TMigration
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import torch_spans  # noqa: E402
 
 SERVE_TEST = dict(name="serve-test", family="dense", num_layers=2,
                   d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
@@ -534,10 +540,10 @@ class Twin:
     def assert_planes_equal(self) -> None:
         assert tobs.metrics.collect() == jobs.metrics.collect()
         assert tobs.metrics.snapshot() == jobs.metrics.snapshot()
-        names = collections.Counter(
-            e["name"] for e in tobs.tracing.TRACER.events)
-        assert names == collections.Counter(
-            e["name"] for e in jobs.tracing.TRACER.events)
+        shared, want, extra = torch_spans.split(
+            tobs.tracing.TRACER.events, jobs.tracing.TRACER.events)
+        assert shared == want
+        assert extra == set(torch_spans.PORT_SPANS) - {"model.moe"}
         assert _report(tobs) == _report(jobs)
         recs = [(r.op, r.stream, r.step, r.pages.tolist())
                 for r in tobs.memprof.records()]
@@ -670,13 +676,20 @@ def test_sharded_engine_with_every_plane_on_folds_as_the_reference(
     assert tobs.metrics.REGISTRY.value(
         tobs.metrics.NAME_READ_STATUS, cls="secded", status="corrected") > 0
     assert _report(tobs) == _report(jobs)
-    names = collections.Counter(
-        e["name"] for e in tobs.tracing.TRACER.events)
+    shared, want, extra = torch_spans.split(
+        tobs.tracing.TRACER.events, jobs.tracing.TRACER.events)
+    names = torch_spans.names(tobs.tracing.TRACER.events)
     assert names["engine.step.compute_ring"] == 1
     assert names["shard.migrate.ring"] == 1
-    assert names["engine.step.compute"] + 1 == collections.Counter(
-        e["name"] for e in jobs.tracing.TRACER.events)[
-        "engine.step.compute"]
+    assert shared["engine.step.compute"] + 1 == want["engine.step.compute"]
+    shared["engine.step.compute"] += 1
+    assert shared == want
+    # the pool in banks: its own spans; the step's and the model's
+    assert extra - set(torch_spans.PORT_SPANS) == {
+        "engine.step.compute_ring", "shard.migrate.ring",
+        "shard.fused.dispatch"}
+    assert extra & set(torch_spans.PORT_SPANS) == \
+        set(torch_spans.PORT_SPANS) - {"model.moe"}
 
 
 def test_dashboard_and_creamtop_render_what_the_reference_renders(tmp_path):

@@ -56,14 +56,19 @@ def run_reference(name: str, args: list[str], timeout: float = 600) -> str:
     return proc.stdout
 
 
-def run_port(name: str, args: list[str], device: str = "cpu") -> str:
-    """``repro_torch.examples.<name>.main(args, device)`` -> its stdout."""
+def run_port(name: str, args: list[str], device: str = "cpu",
+             events: list | None = None) -> str:
+    """``repro_torch.examples.<name>.main(args, device)`` -> its stdout;
+    ``events``, if given, receives the tracer's events."""
+    from repro_torch import obs
     module = importlib.import_module(f"repro_torch.examples.{name}")
     out = io.StringIO()
     reset_planes()
     try:
         with contextlib.redirect_stdout(out):
             module.main(args, device=device)
+        if events is not None:
+            events.extend(obs.tracing.TRACER.events)
     finally:
         reset_planes()
     return out.getvalue()
