@@ -364,7 +364,14 @@ uncorrectable doubles added within 1e-5 of scale; both designs timed
 (the tensor-core tiled product, whose SASS must hold HGMMA, and the
 decode pass up to N = 16), its bound the larger of bytes over 3.35 TB/s
 and flops over the card's dense bf16 tensor rate (SMs x 4096 x max SM
-clock), torch.matmul of the clean A beside it.
+clock), torch.matmul of the clean A beside it. Last, the paged decode
+attention (row 16) at the benchmark's olmoe-1b-7b chat and starcoder2-7b
+code decode shapes, this smoke's serve shapes (head dims 16, 64, 128) and
+granite-34b's 48 query heads on one KV head, over strided page views with
+NaN and Inf past each slot's length and over the engine's contiguous
+view, within 1e-5 of the plain version's scale, its bound the live K/V
+bytes, SDPA over contiguous copies timed beside it (`python3
+chip_phases.py paged-decode` runs it alone).
 
 Then the card's name and power limit, one JSON line listing every kernel
 with its launches on the serve, serve-shard, cache, campaign, regions,
@@ -453,6 +460,17 @@ POOL_CHECK_PAGES = 256     # serve-pool pages held against the plain read
 #: 989 TFLOP/s at 132 SMs and 1830 MHz); main() sets BF16_FLOPS_S
 BF16_FLOPS_PER_SM = 4096
 BF16_FLOPS_S = None
+#: the paged_decode row's decode steps: (B, S_pad, Hkv, g, D, tokens a
+#: page) of the benchmark's olmoe-1b-7b chat cell and starcoder2-7b code
+#: cell, of this smoke's serve phases (qwen3-0.6b and musicgen-large at B,
+#: MAX_LEN; phase_reference's serve-test) and of granite-34b's multi-query
+#: heads (pages of W words hold 8W / (2·Hkv·D) tokens of K and V)
+PAGED_SHAPES = {"olmoe_chat": (32, 768, 16, 1, 128, 4),
+                "starcoder2_code": (16, 3840, 4, 9, 128, 16),
+                "qwen3_serve": (4, 128, 8, 2, 128, 8),
+                "musicgen_serve": (4, 128, 32, 1, 64, 4),
+                "serve_test": (4, 32, 2, 2, 16, 8),
+                "granite34b_mqa": (4, 128, 1, 48, 128, 64)}
 
 # kernel -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -491,6 +509,9 @@ KERNELS = {
         "src/repro/kernels/mixed/kernel.py:139"),
     "ecc_matmul": ("src/repro_torch/csrc/ecc_matmul.cu",
                    "src/repro/kernels/ecc_matmul/kernel.py:61"),
+    "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
+                     "none: the einsum chain of "
+                     "src/repro/models/attention.py:158"),
 }
 
 
@@ -1199,6 +1220,7 @@ def _kernel_class(name: str) -> str:
                      ("hash_lookup_read", "hash probe+gather"),
                      ("interwrap", "interwrap gather/scatter"),
                      ("flash_attention", "flash attention"),
+                     ("paged_decode", "paged decode attention"),
                      ("parity8", "parity8 codec"),
                      ("scrub_rows", "scrub"),
                      ("mixed_read_correct", "mixed read"),
@@ -2589,6 +2611,94 @@ def phase_flash_kernel(torch, np, dev) -> dict:
         bound=bound_ms(4 * 2 * (hq + hkv) * S * d, flops, FP32_FLOPS_S))
     out["tflops_s"] = flops / out["ms"] / 1e9
     return {"flash_attention": out}
+
+
+def paged_operands(torch, gen, b: int, s_pad: int, hkv: int, g: int,
+                   d: int, bt: int):
+    """A decode step's paged-attention operands on the card: q, k_new, v_new,
+    seeded cache_len (the first slots at 0, S_pad - 1, S_pad and beyond,
+    the rest uniform in [0, S_pad)) and K, V as (B, n_blk, bt, Hkv, D)
+    views of pages that hold a block's K then its V and a tail, as the
+    engine's pages do, NaN in K and Inf in V past each slot's length."""
+    dev = gen.device
+    n_blk = s_pad // bt
+    rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                     device=dev)
+    lens = torch.randint(0, s_pad, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    edges = [0, s_pad - 1, s_pad, s_pad + 5][:b]
+    lens[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+    pages = rnd(b, n_blk, 2 * bt * hkv * d + 4 * d)     # K, V, a tail
+    kv = pages[..., :2 * bt * hkv * d].view(b, n_blk, 2, bt, hkv, d)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    past = (torch.arange(s_pad, device=dev)[None] > lens[:, None].long()
+            ).view(b, n_blk, bt)[..., None, None]
+    k.masked_fill_(past, float("nan"))
+    v.masked_fill_(past, float("inf"))
+    return (rnd(b, hkv * g, d), rnd(b, hkv, d), rnd(b, hkv, d), lens, k, v)
+
+
+def phase_paged_decode(torch, np, dev=None) -> dict:
+    """Row 16, the paged decode attention, against its plain version on the
+    card at every PAGED_SHAPES decode step (head dims 16, 64 and 128; 1 to
+    48 query heads a KV head), float32, over paged_operands' strided page
+    views with garbage past each length, and again over the contiguous
+    one-block (B, 1, S_pad, Hkv, D) view the engine passes: the largest
+    error as a share of the output's largest magnitude, at most 1e-5
+    (float32 sums in another order), and finite outputs. Bound: the live
+    K/V rows, q, the new K/V and the output moved once. Yardstick, timed
+    only: SDPA over contiguous (B, H, S, D) copies with a boolean mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_decode import ops, ref
+    dev = dev or torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    shapes = {}
+    for name, (b, s_pad, hkv, g, d, bt) in PAGED_SHAPES.items():
+        args = paged_operands(torch, gen, b, s_pad, hkv, g, d, bt)
+        q, k_new, v_new, lens, k, v = args
+        want = ref.attend(*args)
+        scale = float(want.abs().max())
+        kc, vc = (t.reshape(b, s_pad, hkv, d).unflatten(1, (1, s_pad))
+                  for t in (k, v))
+        errs = {}
+        for layout, kv in (("pages", (k, v)), ("contiguous", (kc, vc))):
+            got = ops.attend(q, k_new, v_new, lens, *kv)
+            errs[layout] = err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()),
+                  f"paged_decode {name} {layout}: non-finite output")
+            check(err <= 1e-5 * scale, f"paged_decode {name} {layout}: max "
+                  f"abs error {err} at scale {scale}")
+        err = max(errs.values())
+        live = torch.where(lens < s_pad, lens + 1, s_pad).long()
+        nbytes = 4 * (2 * int(live.sum()) * hkv * d + 2 * b * hkv * g * d
+                      + b)
+        flops = 4 * d * g * hkv * int(live.sum())
+        # the yardstick: positions [0, len] of (B, Hkv, S_pad, D) copies
+        kk, vv = (t.transpose(1, 2).contiguous() for t in (kc[:, 0],
+                                                             vc[:, 0]))
+        mask = (torch.arange(s_pad, device=dev)[None] < live[:, None]
+                )[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], kk, vv, attn_mask=mask, enable_gqa=True)
+        shapes[name] = dict(
+            B=b, S_pad=s_pad, Hkv=hkv, g=g, D=d, tokens_a_page=bt,
+            split=ops.split(b, hkv, s_pad, d, torch.cuda.get_device_properties(
+                dev).multi_processor_count) if dev.type == "cuda" else None,
+            live_keys=int(live.sum()), max_abs_err=err, output_scale=scale,
+            max_rel_err=err / scale,
+            contiguous_rel_err=errs["contiguous"] / scale,
+            ms=median_ms(lambda: ops.attend(*args), 20),
+            plain_ms=median_ms(lambda: ref.attend(*args), 3),
+            library_ms=median_ms(lib, 20),
+            bound=bound_ms(nbytes, flops, FP32_FLOPS_S))
+        del args, got, want, kk, vv, kc, vc, k, v
+        torch.cuda.empty_cache()
+    first = shapes["olmoe_chat"]
+    return {"paged_decode": dict(
+        first, max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
+        max_rel_err=max(r["max_rel_err"] for r in shapes.values()),
+        shapes=shapes)}
 
 
 # ---------------------------------------------------------------------------
@@ -4799,6 +4909,15 @@ def serve_alone(torch, np, eng, req, batched: list) -> dict:
                 dense_step_ms=statistics.median(ms))
 
 
+def check_paged_launches(eng, launches: dict) -> None:
+    """Every attention layer of every decode step ran the paged decode
+    kernel: one launch each."""
+    want = eng.n_layers * eng.steps
+    check(launches.get("paged_decode", 0) == want,
+          f"{launches.get('paged_decode')} paged_decode launches for "
+          f"{eng.n_layers} layers x {eng.steps} decode steps")
+
+
 def phase_serve_olmoe(torch, np) -> tuple[dict, list]:
     """olmoe-1b-7b at full width and depth in float32 (25.78 GiB of seeded
     weights, 64 experts top-8): the serve requests in cream and secded
@@ -4809,7 +4928,8 @@ def phase_serve_olmoe(torch, np) -> tuple[dict, list]:
     expert products and the attention blocks timed apart; then a secded
     run on kv_rows rows that preempts, whose tokens are not compared (the
     MoE's output depends on who shares a step, and preemption changes
-    that)."""
+    that). Each of the three runs launches paged_decode once per layer
+    per decode step."""
     from repro_torch.configs import get_config
     cfg = get_config(OLMOE)
     rows = resident_rows(torch, cfg)
@@ -4819,6 +4939,7 @@ def phase_serve_olmoe(torch, np) -> tuple[dict, list]:
         eng, reqs, stats, l, wall = serve_full_width(torch, np, OLMOE, mode,
                                                      rows)
         launches.append(l)
+        check_paged_launches(eng, l)
         tokens[mode] = [r.generated for r in reqs]
         check(stats["preemptions"] == 0, f"olmoe {mode} run preempted")
         runs[mode] = dict(summary(stats, l, wall),
@@ -4847,6 +4968,7 @@ def phase_serve_olmoe(torch, np) -> tuple[dict, list]:
     eng, reqs, stats, l, wall = serve_full_width(torch, np, OLMOE, "secded",
                                                  small)
     launches.append(l)
+    check_paged_launches(eng, l)
     check(stats["preemptions"] > 0, "olmoe secded pool should preempt")
     check(l.get("secded_decode", 0) > 0,
           "the preempting secded run launched no SECDED decode")
@@ -6117,6 +6239,7 @@ def main() -> int:
     kern["kernels"].update(phase_flash_kernel(torch, np, dev))
     kern["kernels"].update(phase_routed_kernel(torch, np, dev))
     kern["kernels"].update(phase_ecc_kernel(torch, np, dev))
+    kern["kernels"].update(phase_paged_decode(torch, np, dev))
     phase("kernels", kern)
     ecc_mlp, l_em = phase_ecc_mlp(torch, np, dev)
     phase("ecc-mlp", ecc_mlp)

@@ -21,6 +21,12 @@ Ported (with their TPU originals in ``repro/kernels/``):
   flash_attention  causal GQA online-softmax attention csrc/flash_attention.cu
   ecc_matmul  SECDED decode-on-load bf16 A @ B, float32  csrc/ecc_matmul.cu
 
+Added on the card, with no Pallas original (the reference runs the step
+in einsum):
+  paged_decode  a decode step's GQA attention over paged  csrc/paged_decode.cu
+                K/V views, live positions read once,
+                split-KV with a deterministic combine
+
 Shared device code: ``csrc/secded.cuh`` (Hsiao tables, in-register
 correct), ``csrc/coords.cuh`` (page -> (row, lane) of one slice) and
 ``csrc/groups.cuh`` (a page's groups of 8 words fetched slice by slice).

@@ -141,13 +141,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("secded.cu", "mixed.cu", "migrate.cu", "parity8.cu", "hash.cu",
            "scrub.cu", "daec.cu", "interwrap.cu", "flash_attention.cu",
-           "ecc_matmul.cu")
+           "ecc_matmul.cu", "paged_decode.cu")
 HEADERS = ("secded.cuh", "coords.cuh", "groups.cuh")
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 #: C entry -> argument types; every entry returns cudaGetLastError().
 ENTRIES = {
     # data, codes, n_code_words, stream
@@ -192,6 +193,10 @@ ENTRIES = {
     # a_bits, a_codes, b, out, M, N, K, stream (both designs)
     "ecc_matmul_tiled": (_P, _P, _P, _P, _I, _I, _I, _P),
     "ecc_matmul_decode": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # q, k_new, v_new, cache_len, k, v, out, part_acc, part_ml, B, Hkv, g,
+    # D, S, bt, sb, sn, st, chunk, n_chunks, scale_log2, stream
+    "paged_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _L, _L, _L, _I, _I, _F, _P),
 }
 #: The pool kernels' word-granular entries, for row widths W % 8 != 0:
 #: the same arguments as the vector entry of the same stem.

@@ -5,8 +5,10 @@ Port of ``repro/models/attention.py``. The full-sequence path is plain
 einsum attention in float32 by default (``impl="xla"``: the reference
 leaves it to XLA) or the flash-attention kernel (``impl="flash"``,
 :mod:`repro_torch.kernels.flash_attention`), which never holds the
-``(S, S)`` logits and serves long-context prefill. Both decode paths are
-einsum attention over one new token.
+``(S, S)`` logits and serves long-context prefill. The dense-cache decode
+is einsum attention over one new token; the paged decode is the
+paged-decode kernel (:mod:`repro_torch.kernels.paged_decode`), its plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import active_mesh, axis_size, constraint
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.paged_decode import ops as paged_decode
 from repro_torch.models.common import (apply_rope, dense_init, rms_norm,
                                       split_heads)
 
@@ -198,32 +201,19 @@ def apply_attn_decode_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     tier gathered from pool pages. The new token's (k, v) are inserted at
     ``cache_len`` for this computation only and returned as ``(B, Hkv, D)``
     pairs for the block-table owner to scatter back. Positions past
-    ``cache_len`` may hold arbitrary pool bits and are masked out.
+    ``cache_len`` may hold arbitrary pool bits and are masked out (on the
+    card never read): :func:`repro_torch.kernels.paged_decode.ops.attend`.
     """
     b = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    pos = cache_len                                    # (B,) current lengths
-    q, k_new, v_new = _project_one(p, cfg, x, pos)
-
+    q, k_new, v_new = _project_one(p, cfg, x, cache_len)
+    k_new, v_new = k_new.reshape(b, hkv, hd), v_new.reshape(b, hkv, hd)
     ck, cv = kv
-    smax = ck.shape[1]
-    span = torch.arange(smax, device=x.device)[None, :]
-    at_pos = (span == pos[:, None])[:, :, None, None]          # (B, S_pad)
-    ck = torch.where(at_pos, k_new.to(ck.dtype), ck)
-    cv = torch.where(at_pos, v_new.to(cv.dtype), cv)
-
-    qg = q.reshape(b, hkv, hq // hkv, hd)
-    valid = span <= pos[:, None]                               # (B, S_pad)
-    # pool garbage can bit-cast to NaN/Inf; a NaN value would survive the
-    # softmax mask as 0 * NaN, so zero the masked positions outright
-    cv = torch.where(valid[:, :, None, None], cv, 0)
-    logits = torch.einsum("bhgd,bshd->bhgs", qg.float(),
-                          ck.float()) / (hd ** 0.5)
-    logits = torch.where(valid[:, None, None, :], logits, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", probs, cv.float())
+    blocks = (1, ck.shape[1])            # one block of S_pad positions
+    out = paged_decode.attend(q.reshape(b, hq, hd), k_new, v_new, cache_len,
+                              ck.unflatten(1, blocks), cv.unflatten(1, blocks))
     y = out.reshape(b, 1, hq * hd).to(x.dtype) @ p.wo
-    return y, (k_new.reshape(b, hkv, hd), v_new.reshape(b, hkv, hd))
+    return y, (k_new, v_new)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_attn: int,
